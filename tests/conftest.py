@@ -31,3 +31,8 @@ import pytest  # noqa: E402
 def settings():
     from rl_mpc_lanemerging_tpu import Settings
     return Settings()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (and nvcc); skips elsewhere")
