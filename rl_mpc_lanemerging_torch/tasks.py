@@ -54,7 +54,7 @@ def evaluate_controller(cfg: Settings, controller: Controller,
     per-episode metrics.  The traffic world persists across rounds, like
     the reference's persistent SUMO process."""
     num_episodes = num_episodes or cfg.NUM_EPISODES
-    worlds, rng = make_worlds(cfg, batch, dtype, device)
+    worlds, rng = make_worlds(cfg, batch, dtype, resolve_device(device))
     batch = worlds.ego_arc.shape[0]
     agg = StatsAggregator(cfg)
     rounds = -(-num_episodes // batch)

@@ -48,8 +48,18 @@ def random_grids(seed, batch=128, num_t=8, num_s=301):
     return obst, s_values, v0, a0, dist
 
 
-def _tensors(seed, device):
-    return [torch.as_tensor(x, device=device) for x in random_grids(seed)]
+def _tensors(seed, device, batch=128):
+    return [torch.as_tensor(x, device=device)
+            for x in random_grids(seed, batch)]
+
+
+def blocked_layer_grids(seed, layer=4, batch=16):
+    """Random grids whose even scenarios have every cell of one layer
+    blocked: their paths end at the layer before it."""
+    obst, s_values, v0, a0, dist = random_grids(seed, batch)
+    obst[::2, layer, :] = True
+    dist[::2, layer, :] = 0
+    return obst, s_values, v0, a0, dist
 
 
 def test_plain_version_is_per_scenario():
@@ -77,6 +87,49 @@ def test_kernel_matches_plain_version_on_card(seed):
     assert st_kernel.launches == before + 1
     ref = st_kernel.st_wavefront_reference(*args, **KW)
     np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 7])
+def test_kernel_matches_plain_version_on_card_small_batch(batch):
+    _need_card()
+    args = _tensors(5, "cuda", batch)
+    got = st_kernel.st_wavefront(*args, **KW)
+    ref = st_kernel.st_wavefront_reference(*args, **KW)
+    assert got.shape == (batch, 8)
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_version_on_card_blocked_layer():
+    _need_card()
+    args = [torch.as_tensor(x, device="cuda") for x in blocked_layer_grids(6)]
+    got = st_kernel.st_wavefront(*args, **KW).cpu().numpy()
+    ref = st_kernel.st_wavefront_reference(*args, **KW).cpu().numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert np.all(got[::2, 4:] == 0.0)
+
+
+@pytest.mark.cuda
+def test_kernel_on_unaligned_views_and_counts_its_pairs_on_card():
+    """Slices of a larger batch start at addresses that are not multiples
+    of 4 bytes (rows of 301 obstacle bytes); the counter receives the pairs
+    the plain banded version counts."""
+    _need_card()
+    args = _tensors(2, "cuda")
+    part = [x[3:10] for x in args]
+    visited = torch.zeros(1, dtype=torch.int64, device="cuda")
+    got = st_kernel.st_wavefront(*part, **KW, visited=visited)
+    ref = st_kernel.st_wavefront_reference(*args, **KW)[3:10]
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+    v0, a0, s_pad, d_pad = st_kernel._shapes_and_start(
+        part[0], part[2], part[3], KW["max_offset"])
+    work = []
+    st_kernel._wavefront_tables_banded(
+        st_kernel.fold_penalty(part[0], part[4], W, s_pad), v0, a0,
+        st_kernel._kernel_constants(0.3, 0.05, W), part[0].shape[2], d_pad,
+        work=work)
+    assert int(visited.item()) == sum(p for p, _, _ in work) > 0
 
 
 @pytest.mark.cuda
