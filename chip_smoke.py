@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (the pure-MPC ST evaluation at the full
-st_default width: 128 scenarios, 18 x 3001 grids, 300 ADMM iterations) on
-the card and holds every CUDA kernel of that path against its plain PyTorch
-version.  Phases, in order; any failure exits non-zero:
+Drives the port's two main paths on the card, each at full width (128
+scenarios, 18 x 3001 grids, 300 ADMM iterations): the pure-MPC ST
+evaluation (st_default) and the combined RL+MPC arbiter with its trained
+20-256-256-1 actor (combined_default_1), and holds every CUDA kernel of
+those paths against its plain PyTorch version.  Nothing of the earlier path
+is cut.  Phases, in order; any failure exits non-zero:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the kernels from ``rl_mpc_lanemerging_torch/csrc``, one
@@ -30,7 +32,24 @@ version.  Phases, in order; any failure exits non-zero:
    to end (``wrapper_ms``), each beside the full-scan kernel the port began
    with (``earlier_ms``, ``earlier_wrapper_ms``), in the order earlier, new,
    new, earlier; the pairs the kernel's own counter saw against the in-band
-   pairs of the plain version; the plain version's time and the bound.
+   pairs of the plain version; the plain version's time and the bound;
+8. the trained actor on the card vs on the CPU on 128 sensed states: the
+   observation's presence flags identical, jerk within 1e-5;
+9. kernel vs plain version on 1024 rollout test states (the state the
+   arbiter's virtual rollout reaches after ST_TEST_ROLLOUTS steps, 8
+   snapshots of a 128-scenario combined run): >= 99.9% identical paths;
+   the share of them the safety certificate condemns;
+10. the arbiter with every gate of combined_default_1b on, on the card
+    (kernel) vs on the CPU (dense twin), on 128 of the 1024 states sensed in
+    phase 9 (every state where the card's arbiter takes over, up to 64, and
+    others to fill): takeover flags agree on >= 97%, every disagreement and
+    the gate behind it printed;
+11. main path: ``agents.ddpg.evaluate_combined``, combined_default_1, one
+    round at B=128: crash 0 and merge 1 required, exactly 2 kernel launches
+    per control tick, the dense DP never called;
+12. one round of combined_default_1b (TEST_ST_STRICTLY_BETTER) at 32
+    scenarios, so that gate d runs on the card;
+13. per-stage split of one combined control tick.
 
 Prints the ``kernels`` JSON line before the last line, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -48,7 +67,12 @@ import numpy as np
 import torch
 
 CONFIG = "configs/st_default.json"
+COMBINED_CONFIG = "configs/combined_default_1.json"
+COMBINED_B_CONFIG = "configs/combined_default_1b.json"
+COMBINED_B_BATCH = 32
 BATCH = 128
+ROLLOUT_SNAPSHOTS = 8    # of the combined run, ROLLOUT_SNAPSHOT_EVERY apart
+ROLLOUT_SNAPSHOT_EVERY = 12
 # The main path's episode budget (seconds of simulated time), the CLI's
 # default.  This script's first run on an H100 80GB HBM3 (700 W) measured
 # 0.29 s per control tick with warmup included: a round of 100 s episodes
@@ -316,6 +340,281 @@ def scan_launcher(lib, pen, v0, a0, consts, num_s: int, d_pad: int):
         if rc != 0:
             raise RuntimeError(f"st_wavefront_scan: CUDA error {rc}")
     return launch, (bp, vmin, amin)
+
+
+class CallCount:
+    """A function that counts its calls."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, 0
+
+    def __call__(self, *args, **kw):
+        self.calls += 1
+        return self.fn(*args, **kw)
+
+
+def to_cpu(state):
+    return type(state)(*(x.cpu() for x in state))
+
+
+def round_report(agg, cfg) -> dict:
+    """The quality figures of one evaluated round."""
+    cols = agg.columns
+    return {
+        "episodes": len(cols["crashed"]),
+        "crash": float(np.mean(cols["crashed"])),
+        "merge": float(np.mean(cols["merged"])),
+        "mean_abs_jerk": float(np.mean(cols["mean_abs_jerk"])),
+        "time_to_merge_s": float(np.mean(cols["time_to_merge"])),
+        "mean_ticks": float(np.mean(cols["time_taken"])) / cfg.TICK_LENGTH,
+        "percent_st_solver": float(np.mean(agg.custom["percent st solver"])),
+    }
+
+
+def combined_round(config: str, batch: int, dev, st_kernel, st_dp) -> dict:
+    """One round of the combined task through ``evaluate_combined`` with the
+    kernel's launch count set to 0 just before and read just after.  Control
+    ticks are counted at the actor: the arbiter queries it once from the
+    sensed state and once for each further rollout step."""
+    from rl_mpc_lanemerging_torch.agents import ddpg
+    from rl_mpc_lanemerging_torch.checkpoint import load_actor
+    from rl_mpc_lanemerging_torch.config import Settings
+    cfg = Settings.load_from_file(config).replace(
+        NUM_EPISODES=batch, BATCH_SCENARIOS=batch)
+    actor = load_actor(cfg.MODEL_NAME, dev, cfg.MINIMUM_NEGATIVE_JERK,
+                       cfg.MAXIMUM_POSITIVE_JERK)
+    queries = CallCount(lambda *a: None)
+    actor.register_forward_hook(queries)
+    dense = [CallCount(st_dp.solve_st_fast),
+             CallCount(st_dp.solve_st_no_jerk_fast)]
+    st_dp.solve_st_fast, st_dp.solve_st_no_jerk_fast = dense
+    try:
+        st_kernel.launches = 0
+        t0 = time.perf_counter()
+        agg = ddpg.evaluate_combined(cfg, actor=actor, device=dev,
+                                     verbose=False)
+        seconds = time.perf_counter() - t0
+        launches = st_kernel.launches
+    finally:
+        st_dp.solve_st_fast, st_dp.solve_st_no_jerk_fast = (
+            d.fn for d in dense)
+    per_tick = max(cfg.ROLLOUT_LENGTH, 1)
+    assert queries.calls % per_tick == 0, (queries.calls, per_tick)
+    ticks = queries.calls // per_tick
+    rep = round_report(agg, cfg)
+    rep.update(control_ticks=ticks, seconds=seconds,
+               seconds_per_tick=seconds / max(ticks, 1), launches=launches,
+               dense_dp_calls=sum(d.calls for d in dense))
+    print("   " + json.dumps(rep), flush=True)
+    assert rep["episodes"] == batch and np.isfinite(rep["mean_abs_jerk"])
+    assert ticks > 0 and launches == 2 * ticks, (launches, ticks)
+    assert rep["dense_dp_calls"] == 0, "the dense DP ran on the card path"
+    return rep
+
+
+def combined_phases(dev, states, worlds0, kw) -> dict:
+    """Phases 8-13: the combined RL+MPC arbiter.  ``states`` are 128 sensed
+    states of the merge region and ``worlds0`` the worlds they were sensed
+    from; ``kw`` the solver's keyword arguments."""
+    from rl_mpc_lanemerging_torch.agents import combined, ddpg
+    from rl_mpc_lanemerging_torch.checkpoint import load_actor
+    from rl_mpc_lanemerging_torch.config import Settings
+    from rl_mpc_lanemerging_torch.ops import qp, st_dp, st_kernel
+    from rl_mpc_lanemerging_torch.planner import mpc
+    from rl_mpc_lanemerging_torch.planner.grid import build_st_grid
+    from rl_mpc_lanemerging_torch.rl.obs import state_vector
+    from rl_mpc_lanemerging_torch.sim import (CounterRandom, add_ego,
+                                              init_world, sense, warmup,
+                                              world_step)
+
+    cfg = Settings.load_from_file(COMBINED_CONFIG)
+    actor = load_actor(cfg.MODEL_NAME, dev, cfg.MINIMUM_NEGATIVE_JERK,
+                       cfg.MAXIMUM_POSITIVE_JERK)
+    actor_cpu = load_actor(cfg.MODEL_NAME, "cpu", cfg.MINIMUM_NEGATIVE_JERK,
+                           cfg.MAXIMUM_POSITIVE_JERK)
+    policy = ddpg.actor_jerk(actor, cfg)
+    policy_cpu = ddpg.actor_jerk(actor_cpu, cfg)
+    control, init_carry, _ = combined.combined_controller(policy, cfg)
+    assert init_carry is None
+    states_cpu = to_cpu(states)
+    out = {}
+
+    t0 = phase("8 actor on the card vs on the CPU")
+    obs, obs_cpu = state_vector(states, cfg).cpu(), state_vector(states_cpu,
+                                                                 cfg)
+    flags = slice(3, 16, 4)
+    assert obs.shape == (BATCH, 20) and torch.equal(obs[:, flags],
+                                                    obs_cpu[:, flags])
+    jerk, jerk_cpu = policy(states).cpu(), policy_cpu(states_cpu)
+    out["actor_obs_gap"] = float((obs - obs_cpu).abs().max())
+    out["actor_jerk_gap"] = float((jerk - jerk_cpu).abs().max())
+    print(f"   {BATCH} sensed states: presence flags identical "
+          f"({int(obs[:, flags].sum())} cars seen), max |obs card - cpu| "
+          f"{out['actor_obs_gap']:.3g}, jerk in [{float(jerk.min()):.3f}, "
+          f"{float(jerk.max()):.3f}], max |jerk card - cpu| "
+          f"{out['actor_jerk_gap']:.3g} (bar <= 1e-5)", flush=True)
+    assert torch.isfinite(jerk).all() and out["actor_jerk_gap"] <= 1e-5
+    done(t0)
+
+    t0 = phase("9 kernel vs plain version, rollout test states")
+    rng = CounterRandom(1)
+    worlds = init_world(cfg, BATCH, torch.float32, dev)
+    worlds = warmup(worlds, cfg, int(50.0 / cfg.TICK_LENGTH), rng)
+    worlds = add_ego(worlds, torch.full((BATCH,), 15.0, device=dev))
+    grids, condemned, frozen, snapshots = [], [], [], []
+    for tick in range(1, ROLLOUT_SNAPSHOTS * ROLLOUT_SNAPSHOT_EVERY + 1):
+        sensed = sense(worlds, cfg)
+        if tick % ROLLOUT_SNAPSHOT_EVERY == 0:
+            snapshots.append(sensed)
+            _, rollout_len, _, _, test_state = combined._rl_rollout(
+                policy, sensed, policy(sensed), cfg)
+            g = build_st_grid(test_state, cfg, torch.float32)
+            grids.append((g.obstacles, g.s_values, g.ego_speed,
+                          test_state.ego_accel.to(torch.float32),
+                          g.distances))
+            condemned.append(mpc.batched_test_guaranteed_crash(
+                test_state, cfg, use_kernel=True))
+            frozen.append(rollout_len <= cfg.ST_TEST_ROLLOUTS)
+        worlds = world_step(worlds, control(sensed)[0], cfg, rng)
+    seq_k = torch.cat([st_kernel.st_wavefront(*g, **kw) for g in grids])
+    seq_r = torch.cat([st_kernel.st_wavefront_reference(*g, **kw)
+                       for g in grids])
+    torch.cuda.synchronize()
+    k_np, r_np = seq_k.cpu().numpy(), seq_r.cpu().numpy()
+    same = np.all(np.abs(k_np - r_np) <= 1e-4, axis=1)
+    start_blocked = torch.cat([g[0][:, 0, 0] for g in grids])
+    out.update(
+        rollout_grids=len(k_np), rollout_identical=float(same.mean()),
+        rollout_max_abs_err=float(np.abs(k_np - r_np).max()),
+        rollout_condemned_share=float(torch.cat(condemned).float().mean()),
+        rollout_frozen_share=float(torch.cat(frozen).float().mean()))
+    print(f"   {len(k_np)} grids from rollout test states "
+          f"({ROLLOUT_SNAPSHOTS} snapshots, {ROLLOUT_SNAPSHOT_EVERY} ticks "
+          f"apart, of {BATCH} worlds under the arbiter): identical paths "
+          f"{int(same.sum())} of {len(k_np)} = {same.mean():.4f} (bar >= "
+          f"0.999), max abs err {out['rollout_max_abs_err']:.3g}; complete "
+          f"paths {int((k_np[:, -1] != 0).sum())}, certificate condemns "
+          f"{out['rollout_condemned_share']:.4f}, taken from a frozen "
+          f"rollout {out['rollout_frozen_share']:.4f}, start cell inside an "
+          f"obstacle {int(start_blocked.sum())}", flush=True)
+    assert np.isfinite(k_np).all() \
+        and len(k_np) == ROLLOUT_SNAPSHOTS * BATCH
+    if same.mean() < 0.999:
+        import os
+        os.makedirs("runs_torch/chip_smoke", exist_ok=True)
+        bad = np.flatnonzero(~same)
+        stacked = [torch.cat([g[i] for g in grids])[bad].cpu().numpy()
+                   for i in range(5)]
+        np.savez_compressed(
+            "runs_torch/chip_smoke/rollout_grids_k1_differs.npz",
+            obstacles=stacked[0],
+            s_values=stacked[1], v0=stacked[2], a0=stacked[3],
+            distances=stacked[4], kernel=k_np[bad], plain=r_np[bad])
+        raise AssertionError(
+            f"K1 differs from its plain version on {len(bad)} rollout "
+            f"grids; saved to runs_torch/chip_smoke/"
+            f"rollout_grids_k1_differs.npz")
+    done(t0)
+
+    t0 = phase("10 arbiter on the card (kernel) vs on the CPU (dense twin)")
+    cfg_b = Settings.load_from_file(COMBINED_B_CONFIG)
+    assert cfg_b.MODEL_NAME == cfg.MODEL_NAME and cfg_b.TEST_ST_STRICTLY_BETTER
+    pool = type(states)(*(torch.cat(x) for x in zip(*snapshots)))
+    took = torch.cat([combined.arbitrate(policy, snap, cfg_b).take
+                      for snap in snapshots])
+    picked = torch.cat([torch.nonzero(took)[:BATCH // 2, 0],
+                        torch.nonzero(~took)[:, 0]])[:BATCH]
+    chosen = type(states)(*(x[picked] for x in pool))
+    chosen_cpu = to_cpu(chosen)
+    card = combined.arbitrate(policy, chosen, cfg_b)
+    parts = [combined.arbitrate(
+        policy_cpu, type(states)(*(x[i:i + 32] for x in chosen_cpu)), cfg_b)
+        for i in range(0, BATCH, 32)]
+    cpu = type(card)(*(torch.cat(x) for x in zip(*parts)))
+    card = type(card)(*(x.cpu() for x in card))
+    gates = ("take", "crash_pred", "over_speed", "condemned", "st_better")
+    agree = {g: float((getattr(card, g) == getattr(cpu, g)).float().mean())
+             for g in gates}
+    both = card.take == cpu.take
+    speed_gap = float((card.speed - cpu.speed)[both].abs().max())
+    for i in torch.nonzero(~both)[:, 0].tolist():
+        print(f"   state {i}: " + json.dumps({
+            g: [bool(getattr(card, g)[i]), bool(getattr(cpu, g)[i])]
+            for g in gates}) + f" (card, cpu); st speed "
+            f"{float(card.st_speed[i]):.4f} vs {float(cpu.st_speed[i]):.4f}, "
+            f"rl speed {float(card.rl_speed[i]):.4f} vs "
+            f"{float(cpu.rl_speed[i]):.4f}", flush=True)
+    out.update(arbiter_flag_agreement=agree["take"],
+               arbiter_speed_gap=speed_gap)
+    print(f"   {len(picked)} of {len(took)} states ({int(took.sum())} "
+          f"takeovers among them all): agreement " + json.dumps(agree)
+          + f" (bar: take >= 0.97); takeovers on the card "
+          f"{int(card.take.sum())}, by gate a/b/c/d "
+          f"{int(card.crash_pred.sum())}/{int(card.over_speed.sum())}/"
+          f"{int(card.condemned.sum())}/{int(card.st_better.sum())}; max "
+          f"|speed card - cpu| where the flags agree {speed_gap:.3g} m/s, "
+          f"st speeds {float((card.st_speed - cpu.st_speed).abs().max()):.3g}"
+          f", rl speeds "
+          f"{float((card.rl_speed - cpu.rl_speed).abs().max()):.3g}",
+          flush=True)
+    assert torch.isfinite(card.speed).all() and agree["take"] >= 0.97
+    done(t0)
+
+    t0 = phase(f"11 main path: evaluate_combined, combined_default_1, "
+               f"B={BATCH}")
+    out["main"] = combined_round(COMBINED_CONFIG, BATCH, dev, st_kernel,
+                                 st_dp)
+    assert out["main"]["crash"] == 0.0 and out["main"]["merge"] == 1.0
+    done(t0)
+
+    t0 = phase(f"12 evaluate_combined, combined_default_1b (gate d), "
+               f"B={COMBINED_B_BATCH}")
+    out["round_b"] = combined_round(COMBINED_B_CONFIG, COMBINED_B_BATCH, dev,
+                                    st_kernel, st_dp)
+    done(t0)
+
+    t0 = phase("13 combined tick split")
+    s_hist, _, _, _, test_state = combined._rl_rollout(
+        policy, states, policy(states), cfg)
+    _, seq, valid, fine, fine_len, _ = mpc.batched_st_control(
+        states, cfg, use_kernel=True)
+    fine_len = torch.clamp_max(fine_len, s_hist.shape[1])
+    op = qp.build_operator(cfg.fine_horizon, cfg.TICK_LENGTH)
+    split = {
+        "actor_call_ms": wall_ms(lambda: policy(states)),
+        "rollout_ms": wall_ms(lambda: combined._rl_rollout(
+            policy, states, policy(states), cfg)),
+        "plan_sensed_ms": wall_ms(lambda: mpc.batched_plan(
+            states, cfg, use_kernel=True)),
+        "qp_ms": wall_ms(lambda: qp.finer_fit_qp(
+            seq, valid, states.ego_speed, states.ego_accel, op,
+            cfg.T_DISCRETIZATION, cfg.MAX_SPEED,
+            cfg.MAX_POSITIVE_ACCELERATION, cfg.MAX_NEGATIVE_ACCELERATION,
+            cfg.MAXIMUM_POSITIVE_JERK, cfg.MINIMUM_NEGATIVE_JERK,
+            iterations=cfg.QP_ITERATIONS)),
+        "plan_test_state_and_certificate_ms": wall_ms(
+            lambda: mpc.batched_test_guaranteed_crash(test_state, cfg,
+                                                      use_kernel=True)),
+        "gate_d_mean_jerks_ms": wall_ms(lambda: (
+            combined.path_mean_abs_jerk(fine, fine_len, states.ego_speed,
+                                        states.ego_accel, cfg.TICK_LENGTH),
+            combined.path_mean_abs_jerk(s_hist, fine_len, states.ego_speed,
+                                        states.ego_accel, cfg.TICK_LENGTH))),
+        "controller_ms": wall_ms(lambda: control(states)),
+        "controller_gate_d_on_ms": wall_ms(lambda: combined.arbitrate(
+            policy, states, cfg_b)),
+    }
+    # each stage is synchronised on its own, so the stages sum above the
+    # controller, which is not; rollout_ms holds 4 of the 5 actor calls
+    print("   combined tick split (host ms, synchronised): "
+          + json.dumps({k: round(v, 3) for k, v in split.items()}),
+          flush=True)
+    profile = tick_profile(lambda: world_step(
+        worlds0, control(sense(worlds0, cfg))[0], cfg, rng))
+    print("   combined tick profile: " + json.dumps(profile), flush=True)
+    out["split"], out["profile"] = split, profile
+    done(t0)
+    return out
 
 
 def main() -> int:
@@ -598,13 +897,17 @@ def main() -> int:
     assert min(new + [cold_ms]) > bound_ms, "a kernel time below its bound"
     done(t0)
 
+    comb = combined_phases(dev, states, worlds0, kw)
+
     kernels = [{
         "name": "st_wavefront",
         "route": "cuda",
         "source": "rl_mpc_lanemerging_torch/csrc/st_wavefront.cu",
         "replaces": "rl_mpc_lanemerging_tpu/ops/st_pallas.py:70",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
+        "launches": launches + comb["main"]["launches"],
+        "launches_st_path": launches,
+        "launches_combined_path": comb["main"]["launches"],
+        "max_abs_err": max(max_abs_err, comb["rollout_max_abs_err"]),
         "ms": k_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -624,6 +927,10 @@ def main() -> int:
         "dense_disagreements": kinds,
         "control_ticks": ticks_run,
         "seconds_per_tick": s_per_tick,
+        "rollout_grids_compared": comb["rollout_grids"],
+        "rollout_identical_paths": comb["rollout_identical"],
+        "combined_control_ticks": comb["main"]["control_ticks"],
+        "combined_seconds_per_tick": comb["main"]["seconds_per_tick"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "const"]
+__all__ = ["resolve_device", "const", "pin_fp32_matmul"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -28,3 +28,12 @@ def const(value, like: torch.Tensor) -> torch.Tensor:
     cell index by one cell).  A tensor divisor keeps true IEEE division on
     both devices, as XLA does."""
     return torch.tensor(value, dtype=like.dtype, device=like.device)
+
+
+def pin_fp32_matmul() -> None:
+    """Pin float32 matrix products on the card to true fp32.  TF32 keeps
+    about three decimal digits: the QP's ADMM then converges to garbage
+    (ops/qp.py), and the arbiter's gates, each a threshold on a float that
+    the actor's layers feed, drift from the CPU's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")

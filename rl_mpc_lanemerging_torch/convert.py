@@ -1,14 +1,15 @@
 """State carried across from the JAX package to the port.
 
-The ST slice has no learned weights; what crosses is configuration and
-simulator state.  Inputs are plain numpy (dicts of arrays keyed by field
-name, e.g. ``jax.tree.map(np.asarray, state)._asdict()`` on the JAX side),
-so this module imports nothing of JAX.
+What crosses is configuration, simulator state and the trained DDPG
+networks.  Inputs are plain numpy (dicts of arrays keyed by field name, e.g.
+``jax.tree.map(np.asarray, state)._asdict()`` on the JAX side; the Flax
+parameter tree as nested dicts of arrays), so this module imports nothing
+of JAX.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -18,7 +19,11 @@ from .prediction import HighwayState
 from .sim.world import WorldState
 
 __all__ = ["settings_from_json", "highway_state_from_numpy",
-           "world_state_from_numpy"]
+           "world_state_from_numpy", "ddpg_actor_from_numpy",
+           "ddpg_critic_from_numpy", "DENSE_LAYERS"]
+
+# the Flax modules of the JAX package's DDPGActor and DDPGCritic, in order
+DENSE_LAYERS = ("Dense_0", "Dense_1", "Dense_2")
 
 
 def settings_from_json(path: str) -> Settings:
@@ -49,3 +54,35 @@ def world_state_from_numpy(d: Mapping[str, np.ndarray], device,
                                   device=device) if steps is None \
         else _tensor(steps, device).to(torch.int64)
     return WorldState(**fields)
+
+
+def _dense_state_dict(tree) -> Dict[str, torch.Tensor]:
+    """Flax ``{'params': {'Dense_i': {'kernel' (in, out), 'bias'}}}`` as the
+    ``state_dict`` of the port's module: ``nn.Linear.weight`` is (out, in),
+    so ``weight = kernel.T``."""
+    params = tree["params"]
+    if sorted(params) != list(DENSE_LAYERS):
+        raise ValueError(f"expected layers {DENSE_LAYERS}, got "
+                         f"{sorted(params)}")
+    out = {}
+    for name in DENSE_LAYERS:
+        kernel = np.asarray(params[name]["kernel"])
+        bias = np.asarray(params[name]["bias"])
+        if kernel.ndim != 2 or bias.shape != (kernel.shape[1],):
+            raise ValueError(f"{name}: kernel {kernel.shape} and bias "
+                             f"{bias.shape} do not fit a dense layer")
+        out[f"layers.{name}.weight"] = torch.as_tensor(kernel.T.copy())
+        out[f"layers.{name}.bias"] = torch.as_tensor(bias.copy())
+    return out
+
+
+def ddpg_actor_from_numpy(tree) -> Dict[str, torch.Tensor]:
+    """``DDPGActor.state_dict()`` from the JAX actor's parameter tree."""
+    return _dense_state_dict(tree)
+
+
+def ddpg_critic_from_numpy(tree) -> Dict[str, torch.Tensor]:
+    """``DDPGCritic.state_dict()`` from the JAX critic's parameter tree
+    (its first kernel has obs_dim + 1 rows: the action is the last input
+    column on both sides)."""
+    return _dense_state_dict(tree)

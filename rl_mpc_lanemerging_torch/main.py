@@ -1,27 +1,26 @@
 """CLI: ``python -m rl_mpc_lanemerging_torch.main configs/x.json``.
 
-Port of the ST task of ``rl_mpc_lanemerging_tpu/main.py`` (reference
-main.py:16-40, 84-102): load a JSON config and run its TASK.  Runs on the
-card unless ``--device cpu`` is given, and writes a CSV row only to the
-file named by ``--csv``.
+Port of ``rl_mpc_lanemerging_tpu/main.py`` (reference main.py:16-40,
+84-102): load a JSON config and run its TASK.  Runs on the card unless
+``--device cpu`` is given, and writes a CSV row only to the file named by
+``--csv``.  Quirks of the reference dispatcher are kept
+(EVALUATE_COMBINED_DQN loads the DDPG agent, main.py:35-37).
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import logging
 from typing import Optional
 
 from .config import Settings
 
-# TASKs of the JAX package that later slices of the port bring over, with
+# TASKs of the JAX package that a later slice of the port brings over, with
 # the ROADMAP.md item that ports them.
 _LATER = {
-    "EVALUATE_COMBINED_DQN": "Queue 1 item 12 (slice 2)",
-    "EVALUATE_COMBINED_DDPG": "Queue 1 item 12 (slice 2)",
     "TRAIN_DDPG": "Queue 1 item 13 (slice 3)",
     "RESUME_DDPG": "Queue 1 item 13 (slice 3)",
-    "EVALUATE_DDPG": "Queue 1 item 13 (slice 3)",
     "TRAIN_DQN": "Queue 1 item 14 (slice 3)",
     "RESUME_DQN": "Queue 1 item 14 (slice 3)",
     "EVALUATE_DQN": "Queue 1 item 14 (slice 3)",
@@ -31,18 +30,60 @@ _LATER = {
 def do_task(cfg: Settings, device: str = "cuda",
             csv_path: Optional[str] = None) -> None:
     task = cfg.TASK
-    if task != "ST":
-        if task in _LATER:
-            raise NotImplementedError(
-                f"TASK={task} is not ported to PyTorch yet: ROADMAP.md "
-                f"{_LATER[task]}")
-        raise ValueError(f"Unknown TASK: {task}")
-    from . import tasks
+    if task in _LATER:
+        raise NotImplementedError(
+            f"TASK={task} is not ported to PyTorch yet: ROADMAP.md "
+            f"{_LATER[task]}")
     from .rundir import setup_run_dir
+    if task == "ST":
+        from . import tasks
+        run = tasks.evaluate_st
+    elif task == "EVALUATE_DDPG":
+        from .agents import ddpg
+        run = ddpg.evaluate
+    elif task in ("EVALUATE_COMBINED_DQN", "EVALUATE_COMBINED_DDPG"):
+        from .agents import ddpg
+        run = ddpg.evaluate_combined
+    else:
+        raise ValueError(f"Unknown TASK: {task}")
     setup_run_dir(cfg, snapshot_src=False)
-    agg = tasks.evaluate_st(cfg, device=device)
+    agg = run(cfg, device=device)
     if csv_path:
         agg.add_csv_data(csv_path)
+
+
+def do_grid_search_st(cfg: Settings, **kw) -> None:
+    """ST-weight grid search (reference main.py:43-59): every combination
+    of solver weights runs the configured task."""
+    search_grid = {
+        "V_WEIGHT": [0.5, 1.0],
+        "A_WEIGHT": [0.0, 10.0],
+        "J_WEIGHT": [0.0, 10.0, 50.0],
+        "D_WEIGHT": [0.0, 10.0, 100.0, 1000.0],
+        "MIN_ALLOWED_DISTANCE": [5, 6],
+        "CRASH_MIN_S": [10, 15, 20],
+    }
+    for values in itertools.product(*search_grid.values()):
+        do_task(cfg.replace(**dict(zip(search_grid.keys(), values))), **kw)
+
+
+def do_grid_search_combined(cfg: Settings, **kw) -> None:
+    """Combination-hyperparameter grid search (reference main.py:62-81),
+    including the reference's pruning rules."""
+    search_grid = {
+        "ROLLOUT_LENGTH": [3, 5, 10, 20],
+        "ST_TEST_ROLLOUTS": [2, 5, 10],
+        "TEST_ROLLOUT_STATE": [True, False],
+    }
+    for values in itertools.product(*search_grid.values()):
+        c = cfg.replace(**dict(zip(search_grid.keys(), values)))
+        if not c.TEST_ROLLOUT_STATE and c.ST_TEST_ROLLOUTS != 2:
+            continue
+        if c.ROLLOUT_LENGTH == 1 and c.ST_TEST_ROLLOUTS != 2:
+            continue
+        if c.ST_TEST_ROLLOUTS > c.ROLLOUT_LENGTH:
+            continue
+        do_task(c, **kw)
 
 
 def main(argv=None) -> None:
@@ -59,6 +100,11 @@ def main(argv=None) -> None:
                              "plain PyTorch paths)")
     parser.add_argument("--csv", default=None, metavar="PATH",
                         help="append the run's stats row to this CSV")
+    parser.add_argument("--grid-search", choices=["st", "combined"],
+                        default=None,
+                        help="sweep the reference's ST-weight or "
+                             "combination grids around the loaded config "
+                             "(reference main.py:43-81)")
     args = parser.parse_args(argv)
 
     cfg = Settings() if args.config is None \
@@ -68,7 +114,9 @@ def main(argv=None) -> None:
     if args.batch is not None:
         cfg = cfg.replace(BATCH_SCENARIOS=args.batch)
     logging.basicConfig(level=cfg.LOG_LEVEL)
-    do_task(cfg, device=args.device, csv_path=args.csv)
+    run = {"st": do_grid_search_st, "combined": do_grid_search_combined,
+           None: do_task}[args.grid_search]
+    run(cfg, device=args.device, csv_path=args.csv)
 
 
 if __name__ == "__main__":

@@ -14,7 +14,7 @@ from typing import Callable
 
 import torch
 
-from .._device import const
+from .._device import const, pin_fp32_matmul
 from ..config import Settings
 from ..ops import qp, st_dp, st_kernel
 from ..prediction import HighwayState
@@ -130,10 +130,8 @@ def make_batched_controller(cfg: Settings) -> Callable:
     It takes the CUDA kernel when the states lie on the card and the dense
     DP when they lie on the CPU, as the JAX package takes its Pallas kernel
     on an accelerator and the dense DP on the CPU.  The QP's products are
-    pinned to true fp32: TF32 makes the ADMM converge to garbage
-    (ops/qp.py)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    pinned to true fp32."""
+    pin_fp32_matmul()
 
     def controller(states: HighwayState) -> torch.Tensor:
         return batched_st_control(states, cfg,

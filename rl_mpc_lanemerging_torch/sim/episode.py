@@ -36,7 +36,9 @@ __all__ = ["EpisodeStats", "BIN_EDGES", "warmup", "run_episode_batch",
 BIN_EDGES = np.arange(-220, 61, 20).astype(np.float64)
 NUM_BINS = len(BIN_EDGES) - 1
 
-Controller = Callable[[HighwayState], torch.Tensor]
+# HighwayState -> speed commands (B,), or -> (speeds, flag (B,)); with a
+# carry: (HighwayState, carry) -> (one of those, carry)
+Controller = Callable[..., object]
 
 
 class EpisodeStats(NamedTuple):
@@ -174,13 +176,26 @@ def _select_world(mask, new: WorldState, old: WorldState) -> WorldState:
 def run_episode_batch(world: WorldState, cfg: Settings,
                       controller: Controller, rng,
                       max_episode_length: float = 100.0,
-                      wait_before_start: float = 50.0):
+                      wait_before_start: float = 50.0,
+                      controller_carry=None):
     """One full episode for every scenario in the batch.
 
     Returns (world_after, EpisodeStats).  The loop runs until every
     scenario has terminated (arrival / collision / tick budget); scenarios
     that finish early are frozen.  ``rng`` is the draw source
     (``sim/rng.py``).
+
+    A controller may return ``(speed, flag)`` in place of the speeds alone:
+    the flag (B,) of active scenarios is summed into ``aux_sum`` and into
+    ``bin_aux`` at the ego's x-bin (the takeover-vs-x histogram, reference
+    dqn.py:215-226).
+
+    ``controller_carry``: optional per-scenario controller state; when
+    given, ``controller`` is called as ``controller(state, carry) -> (out,
+    carry)``, the carry persists across ticks and, handed back in by the
+    caller, across rounds (like the reference's ``takeover_history``,
+    dqn.py:126-127, which is never reset), and it is returned last:
+    (world_after, EpisodeStats, carry).
     """
     batch = world.ego_arc.shape[0]
     dtype = world.ego_arc.dtype
@@ -211,7 +226,20 @@ def run_episode_batch(world: WorldState, cfg: Settings,
         stats = _tick_metrics(stats, state, prev_a, active, cfg)
         prev_a = torch.where(active, state.ego_accel.to(dtype), prev_a)
 
-        speed_cmd = controller(state).to(dtype)
+        if controller_carry is not None:
+            out, controller_carry = controller(state, controller_carry)
+        else:
+            out = controller(state)
+        if isinstance(out, tuple):
+            speed_cmd, aux = out
+            aux_on = torch.where(active, aux.to(dtype), 0.0)
+            bi = _bin_index(state.ego_x.to(dtype))[:, None]
+            stats = stats._replace(
+                aux_sum=stats.aux_sum + aux_on,
+                bin_aux=stats.bin_aux.scatter_add(1, bi, aux_on[:, None]))
+        else:
+            speed_cmd = out
+        speed_cmd = speed_cmd.to(dtype)
         # frozen scenarios coast (their world is masked below anyway)
         speed_cmd = torch.where(active, speed_cmd, world.ego_v)
         world = _select_world(active, world_step(world, speed_cmd, cfg, rng),
@@ -221,4 +249,6 @@ def run_episode_batch(world: WorldState, cfg: Settings,
     # tick-budget overrun: remove ego, not merged, not crashed
     # (control.py:312-316)
     world = _select_world(~done, remove_ego(world), world)
+    if controller_carry is not None:
+        return world, stats, controller_carry
     return world, stats

@@ -11,7 +11,7 @@ from __future__ import annotations
 import os
 import secrets
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -23,7 +23,8 @@ from .sim import CounterRandom, init_world, run_episode_batch
 from .sim.episode import Controller
 from .stats import StatsAggregator
 
-__all__ = ["seed_of", "make_worlds", "evaluate_controller", "evaluate_st"]
+__all__ = ["seed_of", "make_worlds", "evaluate_controller", "evaluate_st",
+           "report"]
 
 
 def seed_of(cfg: Settings) -> int:
@@ -48,11 +49,18 @@ def evaluate_controller(cfg: Settings, controller: Controller,
                         dtype=torch.float32, device="cuda",
                         max_episode_length: float = 100.0,
                         wait_before_start: float = 50.0,
-                        verbose: bool = True) -> StatsAggregator:
+                        verbose: bool = True,
+                        custom_stats: Optional[Callable] = None,
+                        controller_carry=None) -> StatsAggregator:
     """Batched ``evaluate_control`` (reference control.py:343-363): run
     ceil(num_episodes / batch) rounds of lockstep episodes and aggregate the
     per-episode metrics.  The traffic world persists across rounds, like
-    the reference's persistent SUMO process."""
+    the reference's persistent SUMO process.
+
+    ``custom_stats``: EpisodeStats -> dict of per-episode arrays, aggregated
+    beside the standard columns.  ``controller_carry``: per-scenario state
+    of a stateful controller (``run_episode_batch``), threaded through every
+    round."""
     num_episodes = num_episodes or cfg.NUM_EPISODES
     worlds, rng = make_worlds(cfg, batch, dtype, resolve_device(device))
     batch = worlds.ego_arc.shape[0]
@@ -61,14 +69,19 @@ def evaluate_controller(cfg: Settings, controller: Controller,
     crashes, merges = [], []
     for r in range(rounds):
         t0 = time.perf_counter()
-        worlds, stats = run_episode_batch(
+        out = run_episode_batch(
             worlds, cfg, controller, rng,
             max_episode_length=max_episode_length,
-            wait_before_start=wait_before_start)
+            wait_before_start=wait_before_start,
+            controller_carry=controller_carry)
+        if controller_carry is not None:
+            controller_carry = out[-1]
+        worlds, stats = out[:2]
         if worlds.ego_arc.is_cuda:
             torch.cuda.synchronize(worlds.ego_arc.device)
         wall = time.perf_counter() - t0
-        agg.add_batch(stats, wall_clock_seconds=wall)
+        agg.add_batch(stats, wall_clock_seconds=wall,
+                      custom=custom_stats(stats) if custom_stats else None)
         crashes.append(stats.crashed.float().mean().item())
         merges.append(stats.merged.float().mean().item())
         if verbose:
@@ -78,6 +91,15 @@ def evaluate_controller(cfg: Settings, controller: Controller,
                   f"merge={sum(merges) / len(merges):.4f} "
                   f"({wall:.1f}s/round)", flush=True)
     return agg
+
+
+def report(agg: StatsAggregator, cfg: Settings, verbose: bool) -> None:
+    """Save the run's plots under its run directory and print the stats."""
+    run_dir = os.path.join(RUNS_ROOT, cfg.LOG_DIR)
+    os.makedirs(run_dir, exist_ok=True)
+    agg.save_plots(run_dir)
+    if verbose:
+        agg.print_stats()
 
 
 def evaluate_st(cfg: Settings, num_episodes: Optional[int] = None,
@@ -95,9 +117,5 @@ def evaluate_st(cfg: Settings, num_episodes: Optional[int] = None,
     controller = mpc.make_batched_controller(cfg)
     agg = evaluate_controller(cfg, controller, num_episodes, dtype=dtype,
                               device=dev, verbose=verbose)
-    run_dir = os.path.join(RUNS_ROOT, cfg.LOG_DIR)
-    os.makedirs(run_dir, exist_ok=True)
-    agg.save_plots(run_dir)
-    if verbose:
-        agg.print_stats()
+    report(agg, cfg, verbose)
     return agg

@@ -1,4 +1,6 @@
-"""The CUDA kernel of the port against its plain version, on the card.
+"""The CUDA kernel of the port against its plain version, and the trained
+actor and the combined arbiter on the card against the CPU and the dense
+twin.
 
 This file imports neither JAX nor the JAX package, so that it runs on a
 machine with a card and no JAX:
@@ -142,3 +144,87 @@ def test_wrapper_rejects_bad_inputs_on_card():
         st_kernel.st_wavefront(obst, sv[:, :-1], v0, a0, dist, **KW)
     with pytest.raises(ValueError, match="on cpu"):
         st_kernel.st_wavefront(obst, sv, v0.cpu(), a0, dist, **KW)
+
+
+# ---------------------------------------------------------------------------
+# the trained actor and the combined arbiter on the card
+# ---------------------------------------------------------------------------
+
+def sensed_states(seed, batch, device, slots=32):
+    """Merge-region states (float32): an ego on the ramp or the lane and up
+    to 11 cars around it, sorted front to back, absent slots at -inf."""
+    from rl_mpc_lanemerging_torch.prediction import HighwayState
+    rng = np.random.default_rng(seed)
+    ox = np.full((batch, slots), -np.inf, np.float32)
+    ov = np.zeros((batch, slots), np.float32)
+    oa = np.zeros((batch, slots), np.float32)
+    ego_x = rng.uniform(-120, 40, batch).astype(np.float32)
+    ego_y = np.where(ego_x > 1.5, -1.5,
+                     rng.uniform(-4, 6, batch)).astype(np.float32)
+    for b in range(batch):
+        n = int(rng.integers(0, 12))
+        ox[b, :n] = np.sort(ego_x[b] + rng.uniform(-80, 80, n))[::-1]
+        ov[b, :n] = rng.uniform(0, 12, n)
+        oa[b, :n] = rng.uniform(-3, 2, n)
+    fields = (ego_x, ego_y, rng.uniform(0, 20, batch).astype(np.float32),
+              rng.uniform(-4, 3, batch).astype(np.float32), ox, ov, oa,
+              np.isfinite(ox))
+    return HighwayState(*(torch.as_tensor(x, device=device) for x in fields))
+
+
+def _policies(cfg):
+    from rl_mpc_lanemerging_torch.agents import ddpg
+    from rl_mpc_lanemerging_torch.checkpoint import load_actor
+    return [ddpg.actor_jerk(load_actor(
+        "runs/ddpg_default1_extended", dev, cfg.MINIMUM_NEGATIVE_JERK,
+        cfg.MAXIMUM_POSITIVE_JERK), cfg) for dev in ("cuda", "cpu")]
+
+
+@pytest.mark.cuda
+def test_actor_on_card_matches_cpu():
+    """Observation flags identical, jerk within 1e-5 (true fp32 products on
+    both sides; the sums run in another order)."""
+    _need_card()
+    from rl_mpc_lanemerging_torch._device import pin_fp32_matmul
+    from rl_mpc_lanemerging_torch.rl.obs import state_vector
+    pin_fp32_matmul()
+    on_card, on_cpu = _policies(CFG)
+    states = sensed_states(0, 128, "cpu")
+    states_card = type(states)(*(x.cuda() for x in states))
+    obs, obs_card = state_vector(states, CFG), state_vector(states_card, CFG)
+    assert torch.equal(obs[:, 3:16:4], obs_card[:, 3:16:4].cpu())
+    torch.testing.assert_close(obs_card.cpu(), obs, rtol=0, atol=1e-6)
+    torch.testing.assert_close(on_card(states_card).cpu(), on_cpu(states),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strictly_better", [False, True])
+def test_arbiter_with_kernel_matches_dense_twin_on_card(strictly_better):
+    """``combined_controller`` on a narrowed grid (15 m, 301 cells), kernel
+    against dense twin, both on the card: the two solvers may settle an f32
+    near-tie differently (the bar the kernel holds against the dense twin
+    is 97% of first steps), so takeover flags agree on >= 97% of 128 states
+    and so do the speeds, within 1e-3 m/s."""
+    _need_card()
+    from rl_mpc_lanemerging_torch.agents import combined
+    cfg = CFG.replace(FUTURE_S=15.0, TEST_ROLLOUT_STATE=True,
+                      CHECK_ROLLOUT_CRASH=True, COMBINATION_MIN_DISTANCE=5.1,
+                      TEST_ST_STRICTLY_BETTER=strictly_better)
+    policy, _ = _policies(cfg)
+    states = sensed_states(1, 128, "cuda")
+    before = st_kernel.launches
+    with_kernel, _, _ = combined.combined_controller(policy, cfg,
+                                                     use_kernel=True)
+    with_dense, _, _ = combined.combined_controller(policy, cfg,
+                                                    use_kernel=False)
+    speed_k, take_k = with_kernel(states)
+    assert st_kernel.launches == before + 2
+    speed_d, take_d = with_dense(states)
+    assert st_kernel.launches == before + 2
+    same = take_k == take_d
+    assert float(same.float().mean()) >= 0.97
+    assert 0.0 < float(take_k.mean()) < 1.0
+    assert torch.isfinite(speed_k).all()
+    close = (speed_k - speed_d).abs() <= 1e-3
+    assert float((same & close).float().mean()) >= 0.97
