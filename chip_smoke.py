@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths on the card, each at full width (128
+Drives the port's main paths on the card, each at full width (128
 scenarios, 18 x 3001 grids, 300 ADMM iterations): the pure-MPC ST
-evaluation (st_default) and the combined RL+MPC arbiter with its trained
-20-256-256-1 actor (combined_default_1), and holds every CUDA kernel of
-those paths against its plain PyTorch version.  Nothing of the earlier path
-is cut.  Phases, in order; any failure exits non-zero:
+evaluation (st_default), the combined RL+MPC arbiter with its trained
+20-256-256-1 actor (combined_default_1), and the training path (the batched
+merge env, the replay and the DDPG and Rainbow trainers on
+train_default_1 and train_dqn_default_1), and holds every CUDA kernel of
+those paths against its plain PyTorch version.  Nothing of the earlier
+paths is cut.  Phases, in order; any failure exits non-zero:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the kernels from ``rl_mpc_lanemerging_torch/csrc``, one
@@ -49,7 +51,33 @@ is cut.  Phases, in order; any failure exits non-zero:
     per control tick, the dense DP never called;
 12. one round of combined_default_1b (TEST_ST_STRICTLY_BETTER) at 32
     scenarios, so that gate d runs on the card;
-13. per-stage split of one combined control tick.
+13. per-stage split of one combined control tick;
+14. the batched merge env on the card vs on the CPU: one ``env_step`` from
+    each of 1024 env states (8 snapshots of 128 scenarios under the noisy
+    ddpg_default1_extended actor, in warmup, spawning, driving and
+    finishing): flags identical, observations and rewards within 1e-4;
+15. 20 DDPG updates on the card vs on the CPU from the same trained actor
+    and critic, Adam state and replay batches: relative parameter gap
+    <= 1e-4;
+16. two DDPG train rounds at full width (B=128, 64 updates per tick, batch
+    100, replay 2^19, REPLAY_START 2000): a whole round of 200 ticks, then
+    a round cut to 20 ticks that all learn (a whole one takes ~2 min, as an
+    update takes ~10 ms of host time); updates = 64 x the ticks past the
+    start, replay size = valid frames, finite parameters; s per round, ms
+    per env tick and per update, and a profile of one tick with its 64
+    updates: device operations, idle share, and the host time of each
+    stage of an update;
+17. 20 Rainbow grad steps on the card vs on the CPU with the same noise:
+    loss, cross-entropy and parameters within 1e-4;
+18. two Rainbow train rounds at full width (B=128, 200 ticks, 1365 learner
+    steps, batch 64, replay 65,536): the same counters and times, and the
+    share of priorities PER has updated;
+19. the training tasks: ``agents.ddpg.train`` on train_default_1 (under a
+    LOG_DIR of its own, so that its runs never shadow a converted network)
+    at one 140-tick round per stage, its resume from the extended stage,
+    and EVALUATE_DQN with rainbow_default1_extended over 128 episodes.  K1
+    runs on none of the training paths (its count is 0 after phases 16, 18
+    and 19).
 
 Prints the ``kernels`` JSON line before the last line, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -57,6 +85,7 @@ Prints the ``kernels`` JSON line before the last line, and as the last line
 
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
@@ -67,6 +96,23 @@ import numpy as np
 import torch
 
 CONFIG = "configs/st_default.json"
+TRAIN_CONFIG = "configs/train_default_1.json"
+DQN_CONFIG = "configs/train_dqn_default_1.json"
+TRAINED_DDPG = "runs/ddpg_default1_extended"
+TRAINED_RAINBOW = "runs/rainbow_default1_extended"
+ENV_SNAPSHOTS = 8        # env states of phase 14, ENV_SNAPSHOT_EVERY apart
+ENV_SNAPSHOT_EVERY = 25
+ENV_FIRST_SNAPSHOT = 120
+UPDATE_PARITY_STEPS = 20
+UPDATES_PER_TICK = 64
+TRAIN_ROUNDS = 2
+DDPG_SECOND_ROUND_TICKS = 20  # phase 16's second round: every tick learns
+TASK_FRAMES = 1.0        # one round per stage
+TASK_TICKS = 140         # ticks per round in phase 19: the 100-tick warmup,
+                         # REPLAY_START at ~116, then updates
+TASK_EPISODES = 128
+TASK_LOG_DIR = "chip_smoke_ddpg"  # phase 19's runs; no converted network's
+                                 # name, so that they shadow none
 COMBINED_CONFIG = "configs/combined_default_1.json"
 COMBINED_B_CONFIG = "configs/combined_default_1b.json"
 COMBINED_B_BATCH = 32
@@ -176,10 +222,12 @@ def wall_ms(fn, runs: int = 10) -> float:
     return statistics.median(times)
 
 
-def tick_profile(tick, ticks: int = 3) -> dict:
+def tick_profile(tick, ticks: int = 3, ranges=()) -> dict:
     """torch.profiler over a few control ticks: wall time, device time
     summed over kernels, the device's idle share, and kernel launches per
-    tick."""
+    tick; with ``ranges``, the host time per tick inside each of those
+    ``record_function`` ranges and the six operators that take the most
+    host time."""
     from torch.profiler import ProfilerActivity, profile
     tick()
     torch.cuda.synchronize()
@@ -190,10 +238,14 @@ def tick_profile(tick, ticks: int = 3) -> dict:
             tick()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # a record_function range also leaves a span on the device's timeline
+    # around its kernels: not a kernel, and not counted
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.name not in ranges]
     device_us = sum(e.device_time_total for e in kernels)
-    return {
+    out = {
         "tick_wall_ms": wall_us / ticks / 1e3,
         "tick_device_ms": device_us / ticks / 1e3 if kernels else
         "not measured",
@@ -201,6 +253,23 @@ def tick_profile(tick, ticks: int = 3) -> dict:
         "not measured",
         "device_ops_per_tick": len(kernels) / ticks,
     }
+    if ranges:
+        # a range has a host entry and a device entry (no host time)
+        events = prof.key_averages()
+        host_us = {}
+        for e in events:
+            if e.key in ranges:
+                host_us[e.key] = host_us.get(e.key, 0.0) + e.cpu_time_total
+        out["range_host_ms_per_tick"] = {
+            r: host_us[r] / ticks / 1e3 if r in host_us else "not measured"
+            for r in ranges}
+        top = sorted((e for e in events if e.key not in ranges),
+                     key=lambda e: e.self_cpu_time_total, reverse=True)[:6]
+        out["top_host_ops_per_tick"] = [
+            {"name": e.key, "calls": e.count / ticks,
+             "self_host_ms": e.self_cpu_time_total / ticks / 1e3}
+            for e in top]
+    return out
 
 
 def walk_path(seq, obstacles, s_values, distances, v0, a0, delta_t, w,
@@ -367,7 +436,9 @@ def round_report(agg, cfg) -> dict:
         "mean_abs_jerk": float(np.mean(cols["mean_abs_jerk"])),
         "time_to_merge_s": float(np.mean(cols["time_to_merge"])),
         "mean_ticks": float(np.mean(cols["time_taken"])) / cfg.TICK_LENGTH,
-        "percent_st_solver": float(np.mean(agg.custom["percent st solver"])),
+        **({"percent_st_solver": float(np.mean(
+            agg.custom["percent st solver"]))}
+           if "percent st solver" in agg.custom else {}),
     }
 
 
@@ -382,7 +453,7 @@ def combined_round(config: str, batch: int, dev, st_kernel, st_dp) -> dict:
     cfg = Settings.load_from_file(config).replace(
         NUM_EPISODES=batch, BATCH_SCENARIOS=batch)
     actor = load_actor(cfg.MODEL_NAME, dev, cfg.MINIMUM_NEGATIVE_JERK,
-                       cfg.MAXIMUM_POSITIVE_JERK)
+                       cfg.MAXIMUM_POSITIVE_JERK, committed=True)
     queries = CallCount(lambda *a: None)
     actor.register_forward_hook(queries)
     dense = [CallCount(st_dp.solve_st_fast),
@@ -429,9 +500,9 @@ def combined_phases(dev, states, worlds0, kw) -> dict:
 
     cfg = Settings.load_from_file(COMBINED_CONFIG)
     actor = load_actor(cfg.MODEL_NAME, dev, cfg.MINIMUM_NEGATIVE_JERK,
-                       cfg.MAXIMUM_POSITIVE_JERK)
+                       cfg.MAXIMUM_POSITIVE_JERK, committed=True)
     actor_cpu = load_actor(cfg.MODEL_NAME, "cpu", cfg.MINIMUM_NEGATIVE_JERK,
-                           cfg.MAXIMUM_POSITIVE_JERK)
+                           cfg.MAXIMUM_POSITIVE_JERK, committed=True)
     policy = ddpg.actor_jerk(actor, cfg)
     policy_cpu = ddpg.actor_jerk(actor_cpu, cfg)
     control, init_carry, _ = combined.combined_controller(policy, cfg)
@@ -614,6 +685,395 @@ def combined_phases(dev, states, worlds0, kw) -> dict:
     print("   combined tick profile: " + json.dumps(profile), flush=True)
     out["split"], out["profile"] = split, profile
     done(t0)
+    return out
+
+
+def _to(tree, dev):
+    """A NamedTuple of tensors (nested one level) on ``dev``."""
+    return type(tree)(*(_to(x, dev) if isinstance(x, tuple)
+                        else x.to(dev) for x in tree))
+
+
+def _counting(module, name: str):
+    """Wrap ``module.name`` in a CallCount; returns it (restore with
+    ``setattr(module, name, counter.fn)``)."""
+    counter = CallCount(getattr(module, name))
+    setattr(module, name, counter)
+    return counter
+
+
+def _param_gap(card, cpu) -> float:
+    """Largest |card - cpu| of a tensor over its largest |cpu|."""
+    return max(float((a.detach().cpu() - b.detach()).abs().max())
+               / max(float(b.detach().abs().max()), 1e-30)
+               for a, b in zip(card, cpu))
+
+
+def _range_cost_us(n: int = 2000) -> float:
+    """Host time of one empty ``record_function`` range with the profiler
+    off, in us (the cost of the update's stage ranges)."""
+    from torch.profiler import record_function
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with record_function("ddpg.cost"):
+            pass
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def _train_round_report(name, state, rounds, dev):
+    """Run the train rounds ``rounds`` (callables), timing each; returns
+    the figures."""
+    seconds = []
+    for run_round in rounds:
+        t0 = time.perf_counter()
+        run_round()
+        torch.cuda.synchronize(dev)
+        seconds.append(time.perf_counter() - t0)
+    rep = {"s_per_round": seconds, "frames": int(state.frames),
+           "episodes": int(state.episodes),
+           "replay_size": int(state.replay.size)}
+    print(f"   {name}: " + json.dumps(rep), flush=True)
+    return rep
+
+
+def training_phases(dev, batch: int = BATCH) -> dict:
+    """Phases 14-19: the training path (no K1 on it)."""
+    from rl_mpc_lanemerging_torch import convert, tasks
+    from rl_mpc_lanemerging_torch._device import pin_fp32_matmul
+    from rl_mpc_lanemerging_torch.agents import budget, ddpg, rainbow
+    from rl_mpc_lanemerging_torch.checkpoint import load_params
+    from rl_mpc_lanemerging_torch.config import Settings
+    from rl_mpc_lanemerging_torch.envs import merge_env
+    from rl_mpc_lanemerging_torch.models.rainbow import sample_noise
+    from rl_mpc_lanemerging_torch.ops import st_kernel
+    from rl_mpc_lanemerging_torch.rl import replay as rb
+    from rl_mpc_lanemerging_torch.sim import CounterRandom, init_world
+
+    pin_fp32_matmul()
+    cpu = torch.device("cpu")
+    cfg = Settings.load_from_file(TRAIN_CONFIG)
+    trained = load_params(TRAINED_DDPG, committed=True)
+    out = {}
+
+    t0 = phase("14 env on the card vs on the CPU")
+    actor = ddpg._actor_from(cfg, convert.ddpg_actor_from_numpy(
+        trained["actor"]), dev)
+    g = torch.Generator(device=dev).manual_seed(14)
+    world_rng = CounterRandom(14)
+    env = merge_env.env_reset(init_world(cfg, batch, torch.float32, dev), cfg)
+    # every scenario at its own phase: warmups of 1-100 ticks
+    env = env._replace(warmup_left=(torch.arange(batch, device=dev) * 37
+                                    % 100 + 1).to(torch.int32))
+    replay = rb.init_replay(ddpg.DDPG_REPLAY_CAPACITY, cfg.obs_dim, False,
+                            device=dev)
+    snaps = []
+    for tick in range(1, ENV_FIRST_SNAPSHOT + ENV_SNAPSHOT_EVERY
+                      * (ENV_SNAPSHOTS - 1) + 1):
+        with torch.no_grad():
+            action = torch.clamp(
+                actor(env.obs)[:, 0] + ddpg.NOISE_SIGMA * torch.randn(
+                    batch, generator=g, device=dev),
+                cfg.MINIMUM_NEGATIVE_JERK, cfg.MAXIMUM_POSITIVE_JERK)
+        if tick >= ENV_FIRST_SNAPSHOT \
+                and (tick - ENV_FIRST_SNAPSHOT) % ENV_SNAPSHOT_EVERY == 0:
+            snaps.append((env, action))
+        env, tr = merge_env.env_step(env, action, cfg, world_rng)
+        replay = rb.add_batch(replay, tr["obs"], tr["next_obs"], action,
+                              tr["reward"], tr["terminal"], tr["valid"], 1.0)
+    flags = ("done", "terminal", "valid", "spawn_now")
+    disagree, counts = [], {f: 0 for f in flags}
+    obs_gap = reward_gap = 0.0
+    for k, (env_k, action) in enumerate(snaps):
+        _, tr_card = merge_env.env_step(env_k, action, cfg, world_rng)
+        _, tr_cpu = merge_env.env_step(_to(env_k, cpu), action.cpu(), cfg,
+                                       world_rng)
+        for f in flags:
+            counts[f] += int(tr_card[f].sum())
+            for i in torch.nonzero(tr_card[f].cpu() != tr_cpu[f])[:, 0]:
+                disagree.append((f, k, int(i)))
+        obs_gap = max(obs_gap, float((tr_card["next_obs"].cpu()
+                                      - tr_cpu["next_obs"]).abs().max()))
+        reward_gap = max(reward_gap, float((tr_card["reward"].cpu()
+                                            - tr_cpu["reward"]).abs().max()))
+    for f, k, i in disagree:
+        print(f"   flag {f} differs: snapshot {k}, scenario {i}", flush=True)
+    in_warmup = sum(int((e.warmup_left > 0).sum()) for e, _ in snaps)
+    out["env"] = {"states": len(snaps) * batch, "in_warmup": in_warmup,
+                  **{f"{f}_count": counts[f] for f in flags},
+                  "flag_disagreements": len(disagree),
+                  "max_obs_gap": obs_gap, "max_reward_gap": reward_gap}
+    print("   " + json.dumps(out["env"]) + " (bars: flags identical, gaps "
+          "<= 1e-4)", flush=True)
+    assert not disagree and obs_gap <= 1e-4 and reward_gap <= 1e-4
+    assert in_warmup > 0 and counts["spawn_now"] > 0 and counts["done"] > 0
+    done(t0)
+
+    t0 = phase("15 DDPG update on the card vs on the CPU")
+    sides = {}
+    for d in (dev, cpu):
+        a = ddpg._actor_from(cfg, convert.ddpg_actor_from_numpy(
+            trained["actor"]), d).train().requires_grad_(True)
+        c = ddpg.DDPGCritic(cfg.obs_dim)
+        c.load_state_dict(convert.ddpg_critic_from_numpy(trained["critic"]))
+        c = c.to(d)
+        ta, tc = (copy.deepcopy(m).requires_grad_(False) for m in (a, c))
+        sides[d.type] = (a, c, ta, tc, ddpg._adam(a, cfg.LEARNING_RATE),
+                         ddpg._adam(c, cfg.LEARNING_RATE))
+    batches = [rb.sample(replay, ddpg.DDPG_BATCH, generator=g)[1]
+               for _ in range(UPDATE_PARITY_STEPS)]
+    for b in batches:
+        ddpg._update(*sides[dev.type], b)
+        ddpg._update(*sides["cpu"], {k: v.cpu() for k, v in b.items()})
+    gap = max(_param_gap(m_card.parameters(), m_cpu.parameters())
+              for m_card, m_cpu in zip(sides[dev.type][:4], sides["cpu"][:4]))
+    out["ddpg_update_rel_gap"] = gap
+    print(f"   {UPDATE_PARITY_STEPS} updates from the trained "
+          f"ddpg_default1_extended actor and critic, batches of "
+          f"{ddpg.DDPG_BATCH} from {int(replay.size)} replayed transitions: "
+          f"max relative parameter gap {gap:.3g} (bar <= 1e-4)", flush=True)
+    assert gap <= 1e-4
+    done(t0)
+
+    t0 = phase(f"16 DDPG train rounds, B={batch}")
+    worlds, world_rng = tasks.make_worlds(cfg, device=dev)
+    state = ddpg.make_train_state(cfg, worlds, world_rng, seed=16)
+    # the replay size after each tick, and the updates, counted beside the
+    # trainer's own bookkeeping
+    sizes, real_add = [], rb.add_batch
+
+    def recording_add(*args, **kw):
+        replay = real_add(*args, **kw)
+        sizes.append(replay.size.clone())
+        return replay
+
+    rb.add_batch = recording_add
+    updates = _counting(ddpg, "_update")
+    st_kernel.launches = 0
+    try:
+        rep = _train_round_report("DDPG", state, [
+            lambda ticks=ticks: ddpg.train_round(
+                state, cfg, env_ticks=ticks,
+                updates_per_tick=UPDATES_PER_TICK)
+            for ticks in (ddpg.TICKS_PER_ROUND, DDPG_SECOND_ROUND_TICKS)],
+            dev)
+    finally:
+        rb.add_batch, ddpg._update = real_add, updates.fn
+    learning_ticks = sum(int(s) >= ddpg.REPLAY_START for s in sizes)
+    rep.update(updates=updates.calls, learning_ticks=learning_ticks,
+               k1_launches=st_kernel.launches)
+    params = list(state.actor.parameters()) + list(state.critic.parameters())
+    assert updates.calls == UPDATES_PER_TICK * learning_ticks > 0, rep
+    assert rep["replay_size"] == rep["frames"] > 0, rep
+    assert all(bool(torch.isfinite(p).all()) for p in params)
+    assert st_kernel.launches == 0
+    # the stages of a tick, synchronised, on the trained state
+    env_tick_ms = wall_ms(lambda: ddpg.train_round(state, cfg, 1,
+                                                   updates_per_tick=0))
+    update_ms = wall_ms(lambda: [ddpg._update(
+        state.actor, state.critic, state.target_actor, state.target_critic,
+        state.actor_opt, state.critic_opt,
+        rb.sample(state.replay, ddpg.DDPG_BATCH, generator=state.generator)[1])
+        for _ in range(UPDATES_PER_TICK)]) / UPDATES_PER_TICK
+    prof = tick_profile(lambda: ddpg.train_round(
+        state, cfg, 1, UPDATES_PER_TICK), ticks=1, ranges=ddpg.UPDATE_STAGES)
+    stage_ms = {r: ms / UPDATES_PER_TICK for r, ms in
+                prof["range_host_ms_per_tick"].items()
+                if not isinstance(ms, str)}
+    rep.update(env_tick_ms=env_tick_ms, update_ms=update_ms, profile=prof,
+               update_stage_host_ms=stage_ms)
+    out["ddpg_rounds"] = rep
+    print(f"   s per round {[round(x, 2) for x in rep['s_per_round']]} "
+          f"({ddpg.TICKS_PER_ROUND} and {DDPG_SECOND_ROUND_TICKS} ticks), "
+          f"{learning_ticks} ticks past REPLAY_START with {updates.calls} "
+          f"updates (= {UPDATES_PER_TICK} x ticks), replay size = valid "
+          f"frames = {rep['frames']}, {rep['episodes']} episodes; env tick "
+          f"{env_tick_ms:.3f} ms, update {update_ms:.3f} ms; a tick with "
+          f"{UPDATES_PER_TICK} updates: " + json.dumps(prof), flush=True)
+    range_us = _range_cost_us()
+    rep["profiler_range_host_us"] = range_us
+    print("   host ms per update in each stage, under the profiler: "
+          + json.dumps(stage_ms) + f"; a range costs {range_us:.2f} us of "
+          f"host time with the profiler off ({len(ddpg.UPDATE_STAGES)} per "
+          "update)", flush=True)
+    done(t0)
+
+    t0 = phase("17 Rainbow grad step on the card vs on the CPU")
+    q_dist = convert.rainbow_from_numpy(
+        load_params(TRAINED_RAINBOW, committed=True)["q_dist"])
+    nets = {}
+    for d in (dev, cpu):
+        net = rainbow._net(cfg)
+        net.load_state_dict(q_dist)
+        target = copy.deepcopy(net)
+        with torch.no_grad():
+            for p in target.parameters():
+                p.mul_(0.9)
+        net, target = net.to(d), target.to(d).requires_grad_(False)
+        nets[d.type] = (net, target, ddpg._adam(net, cfg.LEARNING_RATE))
+    losses = {dev.type: [], "cpu": []}
+    for step in range(UPDATE_PARITY_STEPS):
+        idx, b = rb.sample(replay, rainbow.RAINBOW_BATCH, generator=g)
+        b = dict(b, action=torch.randint(0, 5, idx.shape, generator=g,
+                                         device=dev),
+                 discount=rainbow.RAINBOW_DISCOUNT ** torch.randint(
+                     1, 4, idx.shape, generator=g, device=dev).float())
+        w = torch.rand(idx.shape, generator=g, device=dev) * 0.8 + 0.2
+        noise = sample_noise(nets[dev.type][0], g)
+        for d, side in nets.items():
+            loss, ce = rainbow._grad_step(
+                *side[:2], side[2], {k: v.to(d) for k, v in b.items()},
+                [(e_in.to(d), e_out.to(d)) for e_in, e_out in noise],
+                w.to(d))
+            losses[d].append((loss.cpu(), ce.cpu()))
+    loss_gap = max(float((a[0] - b[0]).abs()) for a, b in
+                   zip(losses[dev.type], losses["cpu"]))
+    ce_gap = max(float((a[1] - b[1]).abs().max()) for a, b in
+                 zip(losses[dev.type], losses["cpu"]))
+    gap = _param_gap(nets[dev.type][0].parameters(),
+                     nets["cpu"][0].parameters())
+    out["rainbow_step"] = {"loss_gap": loss_gap, "ce_gap": ce_gap,
+                           "param_rel_gap": gap}
+    print(f"   {UPDATE_PARITY_STEPS} grad steps from rainbow_default1_extended"
+          f", the same noise and weights on both sides: " + json.dumps(
+              out["rainbow_step"]) + " (bars <= 1e-4)", flush=True)
+    assert loss_gap <= 1e-4 and ce_gap <= 1e-4 and gap <= 1e-4
+    done(t0)
+
+    t0 = phase(f"18 Rainbow train rounds, B={batch}")
+    dqn_cfg = Settings.load_from_file(DQN_CONFIG)
+    worlds, world_rng = tasks.make_worlds(dqn_cfg, device=dev)
+    state = rainbow.make_train_state(dqn_cfg, worlds, world_rng, seed=18)
+    grad_steps = budget.grad_steps_per_round(
+        dqn_cfg.TRAINING_STEPS_PER_EPISODE, batch, rainbow.TICKS_PER_ROUND)
+    added, real_add = [], rb.add_batch
+
+    def counting_add(*args, **kw):
+        added.append(args[6].sum())           # the valid n-step rows
+        return real_add(*args, **kw)
+
+    rb.add_batch = counting_add
+    steps = _counting(rainbow, "_grad_step")
+    st_kernel.launches = 0
+    try:
+        rep = _train_round_report("Rainbow", state, [
+            lambda: rainbow.train_round(state, dqn_cfg,
+                                        env_ticks=rainbow.TICKS_PER_ROUND,
+                                        grad_steps=grad_steps, epsilon=0.5)
+            ] * TRAIN_ROUNDS, dev)
+    finally:
+        rb.add_batch, rainbow._grad_step = real_add, steps.fn
+    size = int(state.replay.size)
+    pri = state.replay.priority[:size]
+    updated = float((pri != dqn_cfg.PER_MAX_PRIORITY
+                     ** dqn_cfg.PER_ALPHA).float().mean())
+    rep.update(grad_steps=steps.calls, grad_steps_per_round=grad_steps,
+               nstep_rows_added=int(sum(added)), per_updated_share=updated,
+               k1_launches=st_kernel.launches)
+    assert steps.calls == grad_steps * TRAIN_ROUNDS, rep
+    assert rep["replay_size"] == rep["nstep_rows_added"] > 0, rep
+    assert 0.0 < updated <= 1.0 and st_kernel.launches == 0
+    assert all(bool(torch.isfinite(p).all()) for p in state.net.parameters())
+    step_ms = wall_ms(lambda: rainbow._grad_step(
+        state.net, state.target_net, state.opt,
+        rb.sample(state.replay, rainbow.RAINBOW_BATCH,
+                  generator=state.generator)[1],
+        sample_noise(state.net, state.generator)))
+    env_tick_ms = wall_ms(lambda: rainbow.train_round(state, dqn_cfg, 1,
+                                                      grad_steps=0))
+    rep.update(env_tick_ms=env_tick_ms, grad_step_ms=step_ms)
+    out["rainbow_rounds"] = rep
+    print(f"   s per round {[round(x, 2) for x in rep['s_per_round']]}, "
+          f"{steps.calls} learner steps (= {grad_steps} x {TRAIN_ROUNDS}), "
+          f"replay size = n-step rows added = {size}, PER has updated "
+          f"{updated:.4f} of the priorities; env tick {env_tick_ms:.3f} ms, "
+          f"grad step {step_ms:.3f} ms", flush=True)
+    done(t0)
+
+    t0 = phase("19 training tasks end to end")
+    out["tasks"] = training_tasks(dev, cfg, dqn_cfg)
+    done(t0)
+    return out
+
+
+def ddpg_tasks(dev, cfg, small: dict) -> dict:
+    """TRAIN_DDPG through ``ddpg.train`` at one round per stage (both
+    stages' params.npz written), then RESUME_DDPG from the extended stage's
+    checkpoint for one round."""
+    import os
+    from rl_mpc_lanemerging_torch.agents import ddpg
+    from rl_mpc_lanemerging_torch.rundir import RUNS_ROOT
+    out = {}
+    t0 = time.perf_counter()
+    state, agg = ddpg.train(cfg.replace(**small), num_frames=TASK_FRAMES,
+                            eval_episodes=TASK_EPISODES, device=dev,
+                            verbose=True)
+    out["train_ddpg_s"] = time.perf_counter() - t0
+    out["train_ddpg_updates_stage2"] = state.updates
+    out["train_ddpg"] = round_report(agg, cfg)
+    paths = [os.path.join(RUNS_ROOT, cfg.LOG_DIR + s, "params.npz")
+             for s in ("", "_extended")]
+    assert all(os.path.exists(p) for p in paths), paths
+    t0 = time.perf_counter()
+    resume = cfg.replace(TASK="RESUME_DDPG", LOG_DIR=cfg.LOG_DIR + "_resumed",
+                         MODEL_NAME="runs/" + cfg.LOG_DIR + "_extended",
+                         **small)
+    state, agg = ddpg.train(resume, num_frames=TASK_FRAMES, resume=True,
+                            eval_episodes=TASK_EPISODES, device=dev,
+                            verbose=True)
+    out["resume_ddpg_s"] = time.perf_counter() - t0
+    out["resume_ddpg_updates"] = state.updates
+    out["resume_ddpg"] = round_report(agg, cfg)
+    assert out["train_ddpg_updates_stage2"] > 0 \
+        and out["resume_ddpg_updates"] > 0, out
+    return out
+
+
+def training_tasks(dev, cfg, dqn_cfg) -> dict:
+    """``ddpg.train`` on train_default_1 at one round per stage, its resume
+    from the extended stage for one round, and EVALUATE_DQN with the
+    converted rainbow_default1_extended: all on the card, with K1's count
+    set to 0 before and read after (the training paths never plan)."""
+    from rl_mpc_lanemerging_torch.agents import ddpg, rainbow
+    from rl_mpc_lanemerging_torch.ops import st_kernel
+    small = dict(NUM_EPISODES=TASK_EPISODES)
+    print(f"   reduced for the smoke: frame budget {TASK_FRAMES:.0f} per "
+          f"stage (one round), rounds of {TASK_TICKS} ticks (the "
+          f"trainer's: {ddpg.TICKS_PER_ROUND}), selection evals of "
+          f"{TASK_EPISODES} episodes "
+          f"(the trainer's default: 2048), final evaluations of "
+          f"{TASK_EPISODES} episodes (NUM_EPISODES "
+          f"{cfg.NUM_EPISODES})", flush=True)
+    out = {}
+    st_kernel.launches = 0
+    ticks_per_round, ddpg.TICKS_PER_ROUND = ddpg.TICKS_PER_ROUND, TASK_TICKS
+    try:
+        out.update(ddpg_tasks(dev, cfg.replace(LOG_DIR=TASK_LOG_DIR),
+                              small))
+    finally:
+        ddpg.TICKS_PER_ROUND = ticks_per_round
+    t0 = time.perf_counter()
+    ev = dqn_cfg.replace(TASK="EVALUATE_DQN", MODEL_NAME=TRAINED_RAINBOW,
+                         LOG_DIR=TASK_LOG_DIR + "_evaluate_dqn", **small)
+    agg = rainbow.evaluate(ev, device=dev, verbose=False)
+    out["evaluate_dqn_s"] = time.perf_counter() - t0
+    rep = round_report(agg, ev)
+    rep["sem"] = {k: float(np.std(agg.columns[c]) / np.sqrt(len(
+        agg.columns[c]))) for k, c in (("crash", "crashed"),
+                                       ("merge", "merged"),
+                                       ("mean_abs_jerk", "mean_abs_jerk"),
+                                       ("time_to_merge_s", "time_to_merge"))}
+    out["evaluate_dqn"] = rep
+    out["k1_launches"] = st_kernel.launches
+    print("   EVALUATE_DQN rainbow_default1_extended, "
+          f"{rep['episodes']} episodes: " + json.dumps(rep) + "; run_data.csv"
+          " lines 77 / 217 (TRAIN_DQN rainbow_default1): crash 0.038 / "
+          "0.069, merge 0.790 / 0.896, |jerk| 0.0928 / 0.1222, time to "
+          "merge 38.57 / 34.49 s", flush=True)
+    print("   tasks: " + json.dumps({k: v for k, v in out.items()
+                                       if k != "evaluate_dqn"}), flush=True)
+    assert st_kernel.launches == 0
+    assert np.isfinite(rep["mean_abs_jerk"]) and rep["episodes"] \
+        == TASK_EPISODES
     return out
 
 
@@ -898,6 +1358,7 @@ def main() -> int:
     done(t0)
 
     comb = combined_phases(dev, states, worlds0, kw)
+    train = training_phases(dev)
 
     kernels = [{
         "name": "st_wavefront",
@@ -931,6 +1392,9 @@ def main() -> int:
         "rollout_identical_paths": comb["rollout_identical"],
         "combined_control_ticks": comb["main"]["control_ticks"],
         "combined_seconds_per_tick": comb["main"]["seconds_per_tick"],
+        "launches_training_paths": train["ddpg_rounds"]["k1_launches"]
+        + train["rainbow_rounds"]["k1_launches"]
+        + train["tasks"]["k1_launches"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,7 +1,7 @@
 """State carried across from the JAX package to the port.
 
-What crosses is configuration, simulator state and the trained DDPG
-networks.  Inputs are plain numpy (dicts of arrays keyed by field name, e.g.
+What crosses is configuration, simulator state and the trained DDPG and
+Rainbow networks.  Inputs are plain numpy (dicts of arrays keyed by field name, e.g.
 ``jax.tree.map(np.asarray, state)._asdict()`` on the JAX side; the Flax
 parameter tree as nested dicts of arrays), so this module imports nothing
 of JAX.
@@ -20,10 +20,15 @@ from .sim.world import WorldState
 
 __all__ = ["settings_from_json", "highway_state_from_numpy",
            "world_state_from_numpy", "ddpg_actor_from_numpy",
-           "ddpg_critic_from_numpy", "DENSE_LAYERS"]
+           "ddpg_critic_from_numpy", "rainbow_from_numpy",
+           "tree_from_state_dict",
+           "DENSE_LAYERS", "NOISY_LAYERS"]
 
 # the Flax modules of the JAX package's DDPGActor and DDPGCritic, in order
 DENSE_LAYERS = ("Dense_0", "Dense_1", "Dense_2")
+# the Flax modules of the JAX package's RainbowNet: hidden, value, advantage
+NOISY_LAYERS = ("NoisyDense_0", "NoisyDense_1", "NoisyDense_2")
+NOISY_LEAVES = ("w_mu", "b_mu", "w_sigma", "b_sigma")
 
 
 def settings_from_json(path: str) -> Settings:
@@ -86,3 +91,31 @@ def ddpg_critic_from_numpy(tree) -> Dict[str, torch.Tensor]:
     (its first kernel has obs_dim + 1 rows: the action is the last input
     column on both sides)."""
     return _dense_state_dict(tree)
+
+
+def rainbow_from_numpy(tree) -> Dict[str, torch.Tensor]:
+    """``RainbowNet.state_dict()`` from the JAX ``q_dist`` parameter tree:
+    the port's noisy layers keep the Flax layout, so every leaf crosses
+    as it is."""
+    params = tree["params"]
+    if sorted(params) != list(NOISY_LAYERS):
+        raise ValueError(f"expected layers {NOISY_LAYERS}, got "
+                         f"{sorted(params)}")
+    return {f"layers.{name}.{leaf}": torch.as_tensor(
+        np.array(params[name][leaf]))
+        for name in NOISY_LAYERS for leaf in NOISY_LEAVES}
+
+
+def tree_from_state_dict(state_dict: Mapping[str, torch.Tensor]):
+    """The Flax parameter tree ``{"params": {layer: {leaf: array}}}`` of a
+    port network's ``state_dict`` (``DDPGActor``, ``DDPGCritic`` or
+    ``RainbowNet``), as numpy: the inverse of the ``*_from_numpy``
+    functions above."""
+    params: Dict[str, dict] = {}
+    for key, value in state_dict.items():
+        _, layer, leaf = key.split(".")
+        value = value.detach().cpu().numpy()
+        if leaf == "weight":                 # nn.Linear (out, in)
+            leaf, value = "kernel", value.T
+        params.setdefault(layer, {})[leaf] = np.ascontiguousarray(value)
+    return {"params": params}

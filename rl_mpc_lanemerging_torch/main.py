@@ -16,32 +16,38 @@ from typing import Optional
 
 from .config import Settings
 
-# TASKs of the JAX package that a later slice of the port brings over, with
-# the ROADMAP.md item that ports them.
-_LATER = {
-    "TRAIN_DDPG": "Queue 1 item 13 (slice 3)",
-    "RESUME_DDPG": "Queue 1 item 13 (slice 3)",
-    "TRAIN_DQN": "Queue 1 item 14 (slice 3)",
-    "RESUME_DQN": "Queue 1 item 14 (slice 3)",
-    "EVALUATE_DQN": "Queue 1 item 14 (slice 3)",
-}
-
 
 def do_task(cfg: Settings, device: str = "cuda",
-            csv_path: Optional[str] = None) -> None:
+            csv_path: Optional[str] = None, num_frames: float = 1e6) -> None:
+    """Run ``cfg.TASK``; a training task trains ``num_frames`` frames per
+    stage and ends with the evaluation whose row ``csv_path`` receives."""
     task = cfg.TASK
-    if task in _LATER:
-        raise NotImplementedError(
-            f"TASK={task} is not ported to PyTorch yet: ROADMAP.md "
-            f"{_LATER[task]}")
     from .rundir import setup_run_dir
     if task == "ST":
         from . import tasks
         run = tasks.evaluate_st
+    elif task in ("TRAIN_DQN", "RESUME_DQN"):
+        from .agents import rainbow
+
+        def run(cfg, device):
+            return rainbow.train(cfg, num_frames=num_frames,
+                                 resume=(task == "RESUME_DQN"),
+                                 device=device)[1]
+    elif task in ("TRAIN_DDPG", "RESUME_DDPG"):
+        from .agents import ddpg
+
+        def run(cfg, device):
+            return ddpg.train(cfg, num_frames=num_frames,
+                              resume=(task == "RESUME_DDPG"),
+                              device=device)[1]
+    elif task == "EVALUATE_DQN":
+        from .agents import rainbow
+        run = rainbow.evaluate
     elif task == "EVALUATE_DDPG":
         from .agents import ddpg
         run = ddpg.evaluate
     elif task in ("EVALUATE_COMBINED_DQN", "EVALUATE_COMBINED_DDPG"):
+        # reference quirk: both load the DDPG agent (main.py:35-40)
         from .agents import ddpg
         run = ddpg.evaluate_combined
     else:
@@ -95,6 +101,10 @@ def main(argv=None) -> None:
                         help="override NUM_EPISODES")
     parser.add_argument("--batch", type=int, default=None,
                         help="override BATCH_SCENARIOS")
+    parser.add_argument("--frames", type=float, default=1e6,
+                        help="frame budget per training stage (TRAIN_* "
+                             "tasks; the reference trains 1e6 + 1e6 "
+                             "extended, reference ddpg.py:96-102)")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu runs the "
                              "plain PyTorch paths)")
@@ -116,7 +126,7 @@ def main(argv=None) -> None:
     logging.basicConfig(level=cfg.LOG_LEVEL)
     run = {"st": do_grid_search_st, "combined": do_grid_search_combined,
            None: do_task}[args.grid_search]
-    run(cfg, device=args.device, csv_path=args.csv)
+    run(cfg, device=args.device, csv_path=args.csv, num_frames=args.frames)
 
 
 if __name__ == "__main__":

@@ -1,16 +1,20 @@
-"""Convert trained DDPG actors from orbax checkpoints to plain ``.npz`` files
+"""Convert trained networks from orbax checkpoints to plain ``.npz`` files
 for the PyTorch port.
 
     python scripts/export_ddpg_actors.py [runs/<name> ...]
 
-With no arguments it converts the five actors that serve every
+With no arguments it converts the five DDPG runs that serve every
 ``combined_*_1``, ``combined_*_1b``, ``cross_*_1`` and ``cross_*_1b``
-configuration.  For each run directory it restores ``<run>/params`` with the
-JAX package's ``checkpoint.load_params`` and writes the actor's six float32
-arrays, in the Flax layout (``Dense_i/kernel`` (in, out), ``Dense_i/bias``),
-to ``rl_mpc_lanemerging_torch/weights/<name>.npz``.  The values are copied
-bit for bit.  This script is the only place outside the tests where the port
-meets orbax: it needs ``jax`` and ``orbax`` installed, the port does not.
+configuration, and the Rainbow run ``runs/rainbow_default1_extended``.  For
+each run directory it restores ``<run>/params`` with the JAX package's
+``checkpoint.load_params`` and writes every network in it (a DDPG run's
+``actor`` and ``critic``, a Rainbow run's ``q_dist``) to
+``rl_mpc_lanemerging_torch/weights/<name>.npz``, one float32 array per leaf
+under ``<net>/<layer>/<leaf>`` in the Flax layout (``Dense_i/kernel`` is
+(in, out)), the layout ``rl_mpc_lanemerging_torch/checkpoint.py`` reads.
+The values are copied bit for bit.  This script is the only place outside
+the tests where the port meets orbax: it needs ``jax`` and ``orbax``
+installed, the port does not.
 """
 
 import os
@@ -18,36 +22,39 @@ import sys
 
 os.environ["JAX_PLATFORMS"] = "cpu"
 
-import numpy as np  # noqa: E402
-
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-from rl_mpc_lanemerging_torch.checkpoint import weights_path  # noqa: E402
-from rl_mpc_lanemerging_torch.convert import DENSE_LAYERS  # noqa: E402
+from rl_mpc_lanemerging_torch.checkpoint import (weights_path,  # noqa: E402
+                                                 write_npz)
+from rl_mpc_lanemerging_torch.convert import (DENSE_LAYERS,  # noqa: E402
+                                              NOISY_LAYERS)
 
 DEFAULT_RUNS = tuple(f"runs/ddpg_{name}1_extended" for name in
-                     ("default", "fast", "low", "medium", "moderate"))
+                     ("default", "fast", "low", "medium", "moderate")) \
+    + ("runs/rainbow_default1_extended",)
+# the networks a run may hold, and the layers each must have
+NETS = {"actor": DENSE_LAYERS, "critic": DENSE_LAYERS, "q_dist": NOISY_LAYERS}
 
 
 def export(run_dir: str) -> str:
+    import numpy as np
     from rl_mpc_lanemerging_tpu.checkpoint import load_params
-    actor = load_params(os.path.join(REPO, run_dir))["actor"]["params"]
-    if sorted(actor) != list(DENSE_LAYERS):
-        raise ValueError(f"{run_dir}: unexpected actor layers "
-                         f"{sorted(actor)}")
-    arrays = {}
-    for layer in DENSE_LAYERS:
-        for leaf in ("kernel", "bias"):
-            value = np.asarray(actor[layer][leaf])
-            if value.dtype != np.float32:
-                raise ValueError(f"{run_dir}: {layer}/{leaf} is "
-                                 f"{value.dtype}, expected float32")
-            arrays[f"{layer}/{leaf}"] = value
-    path = weights_path(run_dir)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    np.savez(path, **arrays)
-    return path
+    restored = load_params(os.path.join(REPO, run_dir))
+    if not set(restored) <= set(NETS):
+        raise ValueError(f"{run_dir}: unexpected networks {sorted(restored)}")
+    for net, variables in restored.items():
+        params = variables["params"]
+        if sorted(params) != list(NETS[net]):
+            raise ValueError(f"{run_dir}: unexpected {net} layers "
+                             f"{sorted(params)}")
+        for layer, leaves in params.items():
+            for leaf, value in leaves.items():
+                if np.asarray(value).dtype != np.float32:
+                    raise ValueError(f"{run_dir}: {net}/{layer}/{leaf} is "
+                                     f"{np.asarray(value).dtype}, expected "
+                                     f"float32")
+    return write_npz(weights_path(run_dir), restored)
 
 
 def main(argv) -> None:

@@ -47,7 +47,8 @@ def _jax_params():
 @functools.lru_cache(maxsize=None)
 def _torch_policy():
     actor = tcheckpoint.load_actor(RUN, "cpu", TCFG.MINIMUM_NEGATIVE_JERK,
-                                   TCFG.MAXIMUM_POSITIVE_JERK).double()
+                                   TCFG.MAXIMUM_POSITIVE_JERK,
+                                   committed=True).double()
     return tddpg.actor_jerk(actor, TCFG)
 
 

@@ -228,3 +228,82 @@ def test_arbiter_with_kernel_matches_dense_twin_on_card(strictly_better):
     assert torch.isfinite(speed_k).all()
     close = (speed_k - speed_d).abs() <= 1e-3
     assert float((same & close).float().mean()) >= 0.97
+
+
+# ---------------------------------------------------------------------------
+# the training path on the card
+# ---------------------------------------------------------------------------
+
+def _env_pair(batch=64, warm_ticks=150):
+    """The same env state on the CPU and on the card (float32): traffic
+    after ``warm_ticks`` of warmup, every scenario at another phase of its
+    episode (in warmup, about to spawn, driving)."""
+    from rl_mpc_lanemerging_torch.envs import merge_env
+    from rl_mpc_lanemerging_torch.sim import CounterRandom, init_world, warmup
+    rng = CounterRandom(3)
+    world = warmup(init_world(CFG, batch, torch.float32, "cpu"), CFG,
+                   warm_ticks, rng)
+    env = merge_env.env_reset(world, CFG)
+    env = env._replace(warmup_left=torch.arange(batch, dtype=torch.int32)
+                       % 4)
+    jerk = torch.as_tensor(np.random.default_rng(0).uniform(-5, 5, batch),
+                           dtype=torch.float32)
+    for _ in range(40):                   # egos spawn and drive
+        env, _ = merge_env.env_step(env, jerk, CFG, rng)
+    env_card = merge_env.MergeEnvState(*(
+        type(x)(*(y.cuda() for y in x)) if isinstance(x, tuple)
+        else x.cuda() for x in env))
+    return env, env_card, jerk, rng
+
+
+@pytest.mark.cuda
+def test_env_step_on_card_matches_cpu():
+    """One env tick from the same state: every flag identical, observations
+    and rewards within 1e-4."""
+    _need_card()
+    from rl_mpc_lanemerging_torch.envs import merge_env
+    env, env_card, jerk, rng = _env_pair()
+    _, tr = merge_env.env_step(env, jerk, CFG, rng)
+    _, tr_card = merge_env.env_step(env_card, jerk.cuda(), CFG, rng)
+    for f in ("done", "terminal", "valid", "spawn_now", "collided",
+              "arrived"):
+        assert torch.equal(tr_card[f].cpu(), tr[f]), f
+    for f in ("obs", "next_obs", "reward"):
+        torch.testing.assert_close(tr_card[f].cpu(), tr[f], rtol=0,
+                                   atol=1e-4)
+    assert bool(tr["valid"].any()) and not bool(tr["valid"].all())
+
+
+@pytest.mark.cuda
+def test_ddpg_update_on_card_matches_cpu():
+    """One DDPG update from the same nets, Adam states and batch: every
+    parameter tensor within 1e-4 of its largest magnitude, the bar of
+    chip_smoke.py phase 15 (true fp32 products on both sides; Adam's first
+    step moves each weight by about the learning rate whatever the size of
+    its gradient, so a gradient near zero can flip its step)."""
+    _need_card()
+    import copy
+    from rl_mpc_lanemerging_torch._device import pin_fp32_matmul
+    from rl_mpc_lanemerging_torch.agents import ddpg
+    from rl_mpc_lanemerging_torch.models.ddpg import DDPGActor, DDPGCritic
+    pin_fp32_matmul()
+    g = torch.Generator().manual_seed(0)
+    nets = [DDPGActor(generator=g), DDPGCritic(generator=g),
+            DDPGActor(generator=g), DDPGCritic(generator=g)]
+    sides = []
+    for dev in ("cpu", "cuda"):
+        a, c, ta, tc = (m.to(dev) for m in copy.deepcopy(nets))
+        sides.append((a, c, ta, tc, ddpg._adam(a, 1e-3), ddpg._adam(c, 1e-3)))
+    rng = np.random.default_rng(1)
+    batch = dict(obs=rng.normal(size=(100, 20)),
+                 next_obs=rng.normal(size=(100, 20)),
+                 action=rng.uniform(-5, 5, 100), reward=rng.normal(size=100),
+                 terminal=rng.uniform(size=100) < 0.2)
+    for side, dev in zip(sides, ("cpu", "cuda")):
+        ddpg._update(*side, {k: torch.as_tensor(
+            v, dtype=torch.bool if v.dtype == bool else torch.float32,
+            device=dev) for k, v in batch.items()})
+    for m_cpu, m_card in zip(sides[0][:4], sides[1][:4]):
+        for p_cpu, p_card in zip(m_cpu.parameters(), m_card.parameters()):
+            gap = (p_card.detach().cpu() - p_cpu.detach()).abs().max()
+            assert float(gap) <= 1e-4 * float(p_cpu.detach().abs().max())

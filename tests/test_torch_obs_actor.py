@@ -129,7 +129,8 @@ def _torch_actor(tree, low=-5.0, high=5.0):
 def test_actor_matches_flax_apply(source):
     rng = np.random.default_rng(0)
     tree = _random_tree(rng, 20) if source == "random" \
-        else tcheckpoint.load_actor_tree("runs/ddpg_default1_extended")
+        else tcheckpoint.load_actor_tree("runs/ddpg_default1_extended",
+                                      committed=True)
     obs = rng.normal(0, 1, (64, 20)).astype(np.float32)
     want = np.asarray(jmodels.DDPGActor(action_low=-3.0, action_high=2.0)
                       .apply(tree, jnp.asarray(obs)))
@@ -170,19 +171,37 @@ def test_converter_rejects_a_tree_that_is_not_three_dense_layers():
 def test_committed_actor_equals_its_checkpoint(name):
     run = f"runs/ddpg_{name}1_extended"
     want = load_params(run)["actor"]["params"]
-    got = tcheckpoint.load_actor_tree(run)["params"]
+    got = tcheckpoint.load_actor_tree(run, committed=True)["params"]
     assert sorted(got) == sorted(want)
     for layer in want:
         for leaf in ("kernel", "bias"):
             a, b = got[layer][leaf], np.asarray(want[layer][leaf])
             assert a.dtype == b.dtype == np.float32
             np.testing.assert_array_equal(a, b, err_msg=f"{layer}/{leaf}")
-    actor = tcheckpoint.load_actor(run, "cpu")
+    actor = tcheckpoint.load_actor(run, "cpu", committed=True)
     assert not actor.training
     assert not any(p.requires_grad for p in actor.parameters())
     np.testing.assert_array_equal(
         actor.layers["Dense_0"].weight.numpy(),
         np.asarray(want["Dense_0"]["kernel"]).T)
+
+
+@pytest.mark.parametrize("name", ACTORS)
+def test_committed_critic_equals_its_checkpoint(name):
+    """The critic beside each actor, as the DDPG trainer resumes it."""
+    run = f"runs/ddpg_{name}1_extended"
+    want = load_params(run)["critic"]["params"]
+    got = tcheckpoint.load_params(run, committed=True)["critic"]["params"]
+    assert sorted(got) == sorted(want)
+    for layer in want:
+        for leaf in ("kernel", "bias"):
+            a, b = got[layer][leaf], np.asarray(want[layer][leaf])
+            assert a.dtype == b.dtype == np.float32
+            np.testing.assert_array_equal(a, b, err_msg=f"{layer}/{leaf}")
+    critic = DDPGCritic()
+    critic.load_state_dict(convert.ddpg_critic_from_numpy(
+        tcheckpoint.load_params(run, committed=True)["critic"]))
+    assert critic.layers["Dense_0"].weight.shape == (256, 21)
 
 
 def test_missing_actor_names_the_export_script():
@@ -191,6 +210,35 @@ def test_missing_actor_names_the_export_script():
         tcheckpoint.load_actor("runs/ddpg_default3_extended", "cpu")
     assert os.path.basename(tcheckpoint.weights_path(
         "runs/ddpg_low1_extended/")) == "ddpg_low1_extended.npz"
+
+
+def test_a_run_of_the_port_shadows_the_converted_network(tmp_path,
+                                                          monkeypatch):
+    """``runs/<name>`` resolves to ``runs_torch/<name>/params.npz`` once a
+    run of the port has written it, and to ``weights/<name>.npz`` before;
+    ``committed=True`` reads the converted network in both cases."""
+    run = "runs/ddpg_default1_extended"
+    monkeypatch.chdir(tmp_path)
+    assert tcheckpoint.params_path(run) == tcheckpoint.weights_path(run)
+    committed = tcheckpoint.load_params(run)
+    shifted = {net: {"params": {
+        layer: {leaf: value + 1 for leaf, value in leaves.items()}
+        for layer, leaves in tree["params"].items()}}
+        for net, tree in committed.items()}
+    path = tcheckpoint.save_params(
+        os.path.join("runs_torch", "ddpg_default1_extended"), shifted)
+    assert tcheckpoint.params_path(run) == path
+    assert tcheckpoint.params_path(run, committed=True) \
+        == tcheckpoint.weights_path(run)
+    got = tcheckpoint.load_params(run)
+    again = tcheckpoint.load_params(run, committed=True)
+    for net, tree in committed.items():
+        for layer, leaves in tree["params"].items():
+            for leaf, value in leaves.items():
+                np.testing.assert_array_equal(
+                    got[net]["params"][layer][leaf], value + 1)
+                np.testing.assert_array_equal(
+                    again[net]["params"][layer][leaf], value)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
@@ -204,7 +252,8 @@ def test_actor_policy_and_controller_match_jax(dtype):
     want_jerk = np.asarray(jddpg.actor_jerk(params, CFG)(js))
     want_speed = np.asarray(jddpg.actor_controller(params, CFG)(js))
     actor = tcheckpoint.load_actor(run, "cpu", TCFG.MINIMUM_NEGATIVE_JERK,
-                                   TCFG.MAXIMUM_POSITIVE_JERK).to(dtype)
+                                   TCFG.MAXIMUM_POSITIVE_JERK,
+                                   committed=True).to(dtype)
     got_jerk = tddpg.actor_jerk(actor, TCFG)(ts)
     got_speed = tddpg.actor_controller(actor, TCFG)(ts)
     assert got_jerk.dtype == dtype and got_jerk.shape == (24,)

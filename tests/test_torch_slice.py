@@ -162,15 +162,51 @@ def test_episode_round_matches_jax():
     assert t.ticks.min() > 0
 
 
-def test_cli_runs_only_the_st_task():
-    """The tasks not ported yet name the ROADMAP item that ports them (the
-    evaluation tasks of the actor and the arbiter run:
-    tests/test_torch_combined.py)."""
-    for task in ("TRAIN_DDPG", "RESUME_DDPG", "TRAIN_DQN", "RESUME_DQN",
-                 "EVALUATE_DQN"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md Queue 1 item 1[34]"):
-            tmain.do_task(TCFG.replace(TASK=task), device="cpu")
+def test_cli_runs_only_the_st_task(tmp_path, monkeypatch):
+    """Every TASK of the CLI dispatches, on the card unless asked otherwise:
+    the runners are stubbed here (the ST task runs in
+    ``test_cli_runs_the_st_task_on_the_cpu``, the actor and arbiter tasks in
+    tests/test_torch_combined.py, the training tasks and EVALUATE_DQN in
+    tests/test_torch_train.py).  An unknown TASK raises."""
+    from rl_mpc_lanemerging_torch import tasks as ttasks
+    from rl_mpc_lanemerging_torch.agents import ddpg as tddpg
+    from rl_mpc_lanemerging_torch.agents import rainbow as trainbow
+    monkeypatch.chdir(tmp_path)
+    seen = []
+
+    class Agg:
+        def add_csv_data(self, path):
+            seen.append(("csv", path))
+
+    def stub(name):
+        def run(cfg, **kw):
+            seen.append((name, kw))
+            return (None, Agg()) if name.endswith("train") else Agg()
+        return run
+
+    for mod, name in ((ttasks, "evaluate_st"), (tddpg, "train"),
+                      (tddpg, "evaluate"), (tddpg, "evaluate_combined"),
+                      (trainbow, "train"), (trainbow, "evaluate")):
+        monkeypatch.setattr(mod, name, stub(f"{mod.__name__}.{name}"))
+    want = {
+        "ST": ("tasks.evaluate_st", {}),
+        "TRAIN_DDPG": ("ddpg.train", dict(resume=False, num_frames=5.0)),
+        "RESUME_DDPG": ("ddpg.train", dict(resume=True, num_frames=5.0)),
+        "TRAIN_DQN": ("rainbow.train", dict(resume=False, num_frames=5.0)),
+        "RESUME_DQN": ("rainbow.train", dict(resume=True, num_frames=5.0)),
+        "EVALUATE_DQN": ("rainbow.evaluate", {}),
+        "EVALUATE_DDPG": ("ddpg.evaluate", {}),
+        "EVALUATE_COMBINED_DQN": ("ddpg.evaluate_combined", {}),
+        "EVALUATE_COMBINED_DDPG": ("ddpg.evaluate_combined", {}),
+    }
+    for task, (name, extra) in want.items():
+        seen.clear()
+        tmain.do_task(TCFG.replace(TASK=task), num_frames=5.0,
+                      csv_path="rows.csv")
+        (got, kw), csv = seen
+        assert got.endswith(name) and kw == dict(device="cuda", **extra), \
+            (task, got, kw)
+        assert csv == ("csv", "rows.csv")
     with pytest.raises(ValueError, match="Unknown TASK"):
         tmain.do_task(TCFG.replace(TASK="NOPE"), device="cpu")
 
