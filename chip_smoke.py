@@ -5,19 +5,22 @@
 
 Drives the port's main paths on the card, each at full width (128
 scenarios, 18 x 3001 grids, 300 ADMM iterations): the pure-MPC ST
-evaluation (st_default), the combined RL+MPC arbiter with its trained
-20-256-256-1 actor (combined_default_1), and the training path (the batched
-merge env, the replay and the DDPG and Rainbow trainers on
-train_default_1 and train_dqn_default_1), and holds every CUDA kernel of
-those paths against its plain PyTorch version.  Nothing of the earlier
-paths is cut.  Phases, in order; any failure exits non-zero:
+evaluation (st_default) with its crash capture, the combined RL+MPC arbiter
+with its trained 20-256-256-1 actor (combined_default_1), the training path
+(the batched merge env, the replay and the DDPG and Rainbow trainers on
+train_default_1 and train_dqn_default_1), crash replay, the planner's
+corridor and conditional forms, the custom DQN, the tabular Q path and the
+Gym adapter, and holds every CUDA kernel of those paths against its plain
+PyTorch version.  Depth is cut where noted (512 grids in phases 3, 4 and
+9; no whole learning round in phase 16).  Phases, in order; any failure
+exits non-zero:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the kernels from ``rl_mpc_lanemerging_torch/csrc``, one
    ``nvcc`` per source, started together: K1 and its full-scan yardstick;
-3. kernel vs plain version on 1024 realistic grids (8 snapshots, 10 ticks
+3. kernel vs plain version on 512 realistic grids (4 snapshots, 10 ticks
    apart, of 128 worlds driven through the merge region by the port's own
-   world and controller), in one launch at B=1024: >= 99.9% of s sequences
+   world and controller), in one launch at B=512: >= 99.9% of s sequences
    identical within 1e-4 m, every first-step difference <= 0.101 m;
 4. kernel vs the dense twin (``ops/st_dp.py``) on the same grids, at the
    JAX package's bars: >= 97% first-step agreement, largest first-step
@@ -25,24 +28,25 @@ paths is cut.  Phases, in order; any failure exits non-zero:
    printed, sorted as equal-cost tie, f32 flip or band edge;
 5. controller on the card vs the same controller on the CPU (plain kernel
    version) on 8 of those states: finite speeds within 1e-3 m/s;
-6. main path: one round of ``tasks.evaluate_controller`` with the
-   production controller at B=128; the kernel's launch count must equal
-   the control ticks run;
-7. per-stage split of one control tick, and kernel timing on the first
-   snapshot's 128 grids: the kernel alone (``ms``: CUDA events around runs
-   of 20 launches on prepared inputs, median of 25 runs) and the wrapper end
-   to end (``wrapper_ms``), each beside the full-scan kernel the port began
-   with (``earlier_ms``, ``earlier_wrapper_ms``), in the order earlier, new,
-   new, earlier; the pairs the kernel's own counter saw against the in-band
-   pairs of the plain version; the plain version's time and the bound;
+6. main path: one round of ``tasks.evaluate_st`` (the history recorded,
+   crashes dumped) with the production controller at B=128; the kernel's
+   launch count must equal the control ticks run;
+7. per-stage split of one control tick (the history write included), and
+   kernel timing on the first snapshot's 128 grids: the kernel alone
+   (``ms``: CUDA events around runs of 20 launches on prepared inputs,
+   median of 25 runs) and the wrapper end to end (``wrapper_ms``), each
+   beside the full-scan kernel the port began with (``earlier_ms``,
+   ``earlier_wrapper_ms``), in the order earlier, new, new, earlier; the
+   pairs the kernel's own counter saw against the in-band pairs of the
+   plain version; the plain version's time and the bound;
 8. the trained actor on the card vs on the CPU on 128 sensed states: the
    observation's presence flags identical, jerk within 1e-5;
-9. kernel vs plain version on 1024 rollout test states (the state the
-   arbiter's virtual rollout reaches after ST_TEST_ROLLOUTS steps, 8
+9. kernel vs plain version on 512 rollout test states (the state the
+   arbiter's virtual rollout reaches after ST_TEST_ROLLOUTS steps, 4
    snapshots of a 128-scenario combined run): >= 99.9% identical paths;
    the share of them the safety certificate condemns;
 10. the arbiter with every gate of combined_default_1b on, on the card
-    (kernel) vs on the CPU (dense twin), on 128 of the 1024 states sensed in
+    (kernel) vs on the CPU (dense twin), on 128 of the 512 states sensed in
     phase 9 (every state where the card's arbiter takes over, up to 64, and
     others to fill): takeover flags agree on >= 97%, every disagreement and
     the gate behind it printed;
@@ -51,7 +55,8 @@ paths is cut.  Phases, in order; any failure exits non-zero:
     per control tick, the dense DP never called;
 12. one round of combined_default_1b (TEST_ST_STRICTLY_BETTER) at 32
     scenarios, so that gate d runs on the card;
-13. per-stage split of one combined control tick;
+13. per-stage split of one combined control tick (median of 5 runs per
+    stage);
 14. the batched merge env on the card vs on the CPU: one ``env_step`` from
     each of 1024 env states (8 snapshots of 128 scenarios under the noisy
     ddpg_default1_extended actor, in warmup, spawning, driving and
@@ -59,14 +64,14 @@ paths is cut.  Phases, in order; any failure exits non-zero:
 15. 20 DDPG updates on the card vs on the CPU from the same trained actor
     and critic, Adam state and replay batches: relative parameter gap
     <= 1e-4;
-16. two DDPG train rounds at full width (B=128, 64 updates per tick, batch
-    100, replay 2^19, REPLAY_START 2000): a whole round of 200 ticks, then
-    a round cut to 20 ticks that all learn (a whole one takes ~2 min, as an
-    update takes ~10 ms of host time); updates = 64 x the ticks past the
-    start, replay size = valid frames, finite parameters; s per round, ms
-    per env tick and per update, and a profile of one tick with its 64
-    updates: device operations, idle share, and the host time of each
-    stage of an update;
+16. two DDPG train rounds at full width (B=128, batch 100, replay 2^19,
+    REPLAY_START 2000): 120 ticks with no update fill the replay, then 20
+    ticks that all learn, 64 updates each (a whole learning round of 200
+    ticks takes ~2 min, as an update takes ~10 ms of host time); updates =
+    64 x the learning ticks, replay size = valid frames, finite parameters;
+    s per round, ms per env tick and per update, and a profile of one tick
+    with its 64 updates: device operations, idle share, and the host time
+    of each stage of an update;
 17. 20 Rainbow grad steps on the card vs on the CPU with the same noise:
     loss, cross-entropy and parameters within 1e-4;
 18. two Rainbow train rounds at full width (B=128, 200 ticks, 1365 learner
@@ -77,8 +82,50 @@ paths is cut.  Phases, in order; any failure exits non-zero:
     at one 140-tick round per stage, its resume from the extended stage,
     and EVALUATE_DQN with rainbow_default1_extended over 128 episodes.  K1
     runs on none of the training paths (its count is 0 after phases 16, 18
-    and 19).
+    and 19);
+20. crash capture: one round at B=128 on st_default traffic under a
+    controller that floors it at 30 m/s (40 s episodes after 30 s of
+    warmup), with the history and then without it, from the same seed: at
+    least one crash, identical ``EpisodeStats``, one dump per crash of
+    ``ticks`` states that ``load_crash`` reads back equal to the history,
+    K1 launched 0 times;
+21. ``replay_crash`` of the shortest dump on the card and on the CPU
+    (float64, dense DP): identical doomed flags, K1's count unchanged; and
+    the rollouts and re-solved plans of ``plot_rollouts`` (the work, not
+    the drawing: the card's machine has no matplotlib) for
+    ddpg_default1_extended;
+22. the planner's remaining forms on phase 3's 128 sensed states:
+    ``batched_conditional_st`` with the trained actor's proposed speeds
+    (raised by U(0, 2) m/s on half the states, so that both verdicts
+    occur), on the card (K1) vs on the CPU (dense twin): takeover flags
+    agree on >= 97%, every disagreement printed, exactly 2 K1 launches;
+    ``st_control_speed(use_corridor=True)``, ``plan_st`` and
+    ``test_guaranteed_crash`` on 8 states, card vs CPU: speeds within 1e-3
+    m/s, the same plans and verdicts; ``path_cost_report`` on a float64
+    lattice, card vs CPU: costs within 1e-9 relative, counts identical; no
+    K1 launch but the conditional form's;
+23. the custom DQN: the converted dqn_custom_default1 on 128 states, card
+    vs CPU: identical greedy actions; ``agents.dqn.train`` at B=128 (rounds
+    of 200 ticks with ``grad_steps_per_round(8, 128, 200)`` grad steps,
+    batch and replay of train_default_1) until one episode ends, with a
+    target refresh and a 128-episode selection evaluation after each round
+    that ends one (LOG_DIR ``chip_smoke_dqn``): replay size = valid frames,
+    the grad-step count, s per round, ms per grad step; 20 grad steps card
+    vs CPU: relative parameter gap <= 1e-4; a 128-episode greedy evaluation
+    of the converted net against run_data.csv line 218: crash <= 0.05 and
+    merge >= 0.90;
+24. tabular Q: one random-action collect round at B=256 (602 ticks) and
+    its fold on the card and on the CPU from the same records (and the
+    first episode alone through ``q_update_episode``): Q within 1e-6,
+    visits identical, the fold's seconds; 128 greedy episodes of
+    ``runs/tabular_q_default/q.npy`` (no visit table) against lines 171 and
+    175;
+25. the three Gym envs, 50 steps each on the card and on the CPU from the
+    same seed: identical flags, observations within 1e-4; the IDs'
+    registration (False without gymnasium or gym); K1 launched 0 times in
+    phases 23-25.
 
+Every phase prints its seconds, and the script its total.
 Prints the ``kernels`` JSON line before the last line, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -87,6 +134,8 @@ from __future__ import annotations
 
 import copy
 import json
+import logging
+import os
 import statistics
 import subprocess
 import sys
@@ -106,6 +155,8 @@ ENV_FIRST_SNAPSHOT = 120
 UPDATE_PARITY_STEPS = 20
 UPDATES_PER_TICK = 64
 TRAIN_ROUNDS = 2
+DDPG_FILL_TICKS = 120    # phase 16's first round: no updates; the replay
+                         # reaches REPLAY_START at ~116 ticks
 DDPG_SECOND_ROUND_TICKS = 20  # phase 16's second round: every tick learns
 TASK_FRAMES = 1.0        # one round per stage
 TASK_TICKS = 140         # ticks per round in phase 19: the 100-tick warmup,
@@ -113,11 +164,24 @@ TASK_TICKS = 140         # ticks per round in phase 19: the 100-tick warmup,
 TASK_EPISODES = 128
 TASK_LOG_DIR = "chip_smoke_ddpg"  # phase 19's runs; no converted network's
                                  # name, so that they shadow none
+RAM_SPEED = 30.0         # phase 20's controller floors it, as the JAX
+                         # forensics tests' ram controller does
+CAPTURE_EPISODE = 40.0   # phase 20: 40 s episodes after 30 s of warmup
+CAPTURE_WAIT = 30.0
+CAPTURE_DIR = "runs_torch/chip_smoke/capture"
+CORRIDOR_STATES = 8      # phase 22's st_control_speed(use_corridor=True)
+TRAINED_DQN = "runs/dqn_custom_default1"
+DQN_TICKS = 200          # phase 23's train rounds
+DQN_LOG_DIR = "chip_smoke_dqn"  # no converted network's name
+TABULAR_Q = "runs/tabular_q_default/q.npy"
+TABULAR_BATCH = 256      # phase 24: one collect round, as the trainer's
+GYM_STEPS = 50           # phase 25: steps of each Gym env on each device
+GYM_WAIT = 5.0
 COMBINED_CONFIG = "configs/combined_default_1.json"
 COMBINED_B_CONFIG = "configs/combined_default_1b.json"
 COMBINED_B_BATCH = 32
 BATCH = 128
-ROLLOUT_SNAPSHOTS = 8    # of the combined run, ROLLOUT_SNAPSHOT_EVERY apart
+ROLLOUT_SNAPSHOTS = 4    # of the combined run, ROLLOUT_SNAPSHOT_EVERY apart
 ROLLOUT_SNAPSHOT_EVERY = 12
 # The main path's episode budget (seconds of simulated time), the CLI's
 # default.  This script's first run on an H100 80GB HBM3 (700 W) measured
@@ -126,7 +190,7 @@ ROLLOUT_SNAPSHOT_EVERY = 12
 MAX_EPISODE_LENGTH = 100.0
 TIMING_RUNS = 25
 LAUNCHES_PER_RUN = 20
-SNAPSHOTS = 8            # of the 128 worlds, SNAPSHOT_EVERY ticks apart
+SNAPSHOTS = 4            # of the 128 worlds, SNAPSHOT_EVERY ticks apart
 SNAPSHOT_EVERY = 10
 FIRST_SNAPSHOT = 60      # ticks after the ego joins
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
@@ -571,7 +635,6 @@ def combined_phases(dev, states, worlds0, kw) -> dict:
     assert np.isfinite(k_np).all() \
         and len(k_np) == ROLLOUT_SNAPSHOTS * BATCH
     if same.mean() < 0.999:
-        import os
         os.makedirs("runs_torch/chip_smoke", exist_ok=True)
         bad = np.flatnonzero(~same)
         stacked = [torch.cat([g[i] for g in grids])[bad].cpu().numpy()
@@ -850,11 +913,15 @@ def training_phases(dev, batch: int = BATCH) -> dict:
     updates = _counting(ddpg, "_update")
     st_kernel.launches = 0
     try:
+        # a round with no update fills the replay past REPLAY_START; the
+        # sizes are counted over the second round alone, where every tick
+        # learns
         rep = _train_round_report("DDPG", state, [
-            lambda ticks=ticks: ddpg.train_round(
-                state, cfg, env_ticks=ticks,
-                updates_per_tick=UPDATES_PER_TICK)
-            for ticks in (ddpg.TICKS_PER_ROUND, DDPG_SECOND_ROUND_TICKS)],
+            lambda: (ddpg.train_round(state, cfg, env_ticks=DDPG_FILL_TICKS,
+                                      updates_per_tick=0), sizes.clear()),
+            lambda: ddpg.train_round(state, cfg,
+                                     env_ticks=DDPG_SECOND_ROUND_TICKS,
+                                     updates_per_tick=UPDATES_PER_TICK)],
             dev)
     finally:
         rb.add_batch, ddpg._update = real_add, updates.fn
@@ -863,6 +930,7 @@ def training_phases(dev, batch: int = BATCH) -> dict:
                k1_launches=st_kernel.launches)
     params = list(state.actor.parameters()) + list(state.critic.parameters())
     assert updates.calls == UPDATES_PER_TICK * learning_ticks > 0, rep
+    assert learning_ticks == DDPG_SECOND_ROUND_TICKS, rep
     assert rep["replay_size"] == rep["frames"] > 0, rep
     assert all(bool(torch.isfinite(p).all()) for p in params)
     assert st_kernel.launches == 0
@@ -883,7 +951,8 @@ def training_phases(dev, batch: int = BATCH) -> dict:
                update_stage_host_ms=stage_ms)
     out["ddpg_rounds"] = rep
     print(f"   s per round {[round(x, 2) for x in rep['s_per_round']]} "
-          f"({ddpg.TICKS_PER_ROUND} and {DDPG_SECOND_ROUND_TICKS} ticks), "
+          f"({DDPG_FILL_TICKS} ticks with no update, then "
+          f"{DDPG_SECOND_ROUND_TICKS} learning ticks), "
           f"{learning_ticks} ticks past REPLAY_START with {updates.calls} "
           f"updates (= {UPDATES_PER_TICK} x ticks), replay size = valid "
           f"frames = {rep['frames']}, {rep['episodes']} episodes; env tick "
@@ -999,7 +1068,6 @@ def ddpg_tasks(dev, cfg, small: dict) -> dict:
     """TRAIN_DDPG through ``ddpg.train`` at one round per stage (both
     stages' params.npz written), then RESUME_DDPG from the extended stage's
     checkpoint for one round."""
-    import os
     from rl_mpc_lanemerging_torch.agents import ddpg
     from rl_mpc_lanemerging_torch.rundir import RUNS_ROOT
     out = {}
@@ -1077,6 +1145,441 @@ def training_tasks(dev, cfg, dqn_cfg) -> dict:
     return out
 
 
+def forensics_phases(dev, states) -> dict:
+    """Phases 20-22: crash capture and replay, the rollout plans of
+    ``plot_rollouts``, and the planner's remaining forms.  ``states`` are
+    128 sensed states of phase 3."""
+    import shutil
+    from rl_mpc_lanemerging_torch import forensics
+    from rl_mpc_lanemerging_torch.agents import ddpg
+    from rl_mpc_lanemerging_torch.agents.combined import _speed_from_jerk
+    from rl_mpc_lanemerging_torch.checkpoint import load_actor
+    from rl_mpc_lanemerging_torch.config import Settings
+    from rl_mpc_lanemerging_torch.ops import st_kernel
+    from rl_mpc_lanemerging_torch.planner import mpc
+    from rl_mpc_lanemerging_torch.sim import (CounterRandom, init_world,
+                                              run_episode_batch)
+
+    cfg = Settings.load_from_file(CONFIG)
+    out = {}
+    # one warning per dump and per doomed state: the phases print counts
+    logging.getLogger(forensics.__name__).setLevel(logging.ERROR)
+
+    t0 = phase(f"20 crash capture, st_default traffic, B={BATCH}")
+
+    def ram(sensed):
+        return torch.full_like(sensed.ego_speed, RAM_SPEED)
+
+    st_kernel.launches = 0
+    rounds = {}
+    for record in (True, False):
+        t = time.perf_counter()
+        res = run_episode_batch(
+            init_world(cfg, BATCH, torch.float32, dev), cfg, ram,
+            CounterRandom(20), max_episode_length=CAPTURE_EPISODE,
+            wait_before_start=CAPTURE_WAIT, record_history=record)
+        torch.cuda.synchronize(dev)
+        rounds[record] = (res, time.perf_counter() - t)
+    (_, stats, history), on_s = rounds[True]
+    (_, plain), off_s = rounds[False]
+    differ = [f for f, a, b in zip(stats._fields, stats, plain)
+              if not torch.equal(a, b)]
+    shutil.rmtree(CAPTURE_DIR, ignore_errors=True)
+    t = time.perf_counter()
+    paths = forensics.dump_crashes(stats, history, run_dir=CAPTURE_DIR,
+                                   tag="r0_")
+    dump_s = time.perf_counter() - t
+    rows = torch.nonzero(stats.crashed)[:, 0].tolist()
+    ticks = stats.ticks.tolist()
+    hist_np = [h.cpu().numpy() for h in history]
+    lengths = []
+    for path, b in zip(paths, rows):
+        loaded = forensics.load_crash(path)
+        lengths.append(len(loaded))
+        assert len(loaded) == ticks[b], (path, len(loaded), ticks[b])
+        for t, state in enumerate(loaded):
+            for leaf, h in zip(state, hist_np):
+                assert np.array_equal(leaf, h[b, t]), (path, t)
+    history_mb = sum(h.numel() * h.element_size() for h in history) / 2**20
+    out["capture"] = {
+        "crashes": len(rows), "dumps": len(paths), "states": sum(lengths),
+        "shortest": min(lengths, default=0), "s_history_on": on_s,
+        "s_history_off": off_s, "dump_s": dump_s, "history_mb": history_mb,
+        "control_ticks": int(max(ticks)), "stats_differ": differ,
+        "k1_launches": st_kernel.launches}
+    print("   " + json.dumps(out["capture"]) + " (bars: >= 1 crash, stats "
+          "identical with and without the history, one dump per crash of "
+          "ticks states read back equal, 0 K1 launches)", flush=True)
+    assert rows and not differ and len(paths) == len(rows)
+    assert st_kernel.launches == 0
+    done(t0)
+
+    t0 = phase("21 replay of the shortest dump (card and CPU), rollout "
+               "plans of ddpg_default1_extended")
+    shortest = paths[lengths.index(min(lengths))]
+    times, flags = {}, {}
+    for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        t = time.perf_counter()
+        flags[side], plots = forensics.replay_crash(shortest, cfg, device=d)
+        times[side] = time.perf_counter() - t
+    ccfg = Settings.load_from_file(COMBINED_CONFIG)
+    actor = load_actor(ccfg.MODEL_NAME, dev, ccfg.MINIMUM_NEGATIVE_JERK,
+                       ccfg.MAXIMUM_POSITIVE_JERK, committed=True)
+    t = time.perf_counter()
+    roll, roll_crashed, plans = forensics.rollout_plans(
+        ddpg.actor_jerk(actor, ccfg), ccfg, device=dev)
+    rollout_s = time.perf_counter() - t
+    out["replay"] = {
+        "states": len(flags["cpu"]), "doomed": sum(flags["cpu"]),
+        "flags_identical": flags["card"] == flags["cpu"],
+        "card_s": times["card"], "cpu_s": times["cpu"], "plots": len(plots),
+        "rollout_steps": len(roll) - 1,
+        "rollout_crash_predicted": int(roll_crashed.sum()),
+        "rollout_plan_valid": [p.valid.tolist() for p in plans],
+        "rollout_s": rollout_s, "k1_launches": st_kernel.launches}
+    print("   " + json.dumps(out["replay"]) + " (bars: doomed flags "
+          "identical, 0 K1 launches; no matplotlib here, so no plots)",
+          flush=True)
+    assert out["replay"]["flags_identical"] and st_kernel.launches == 0
+    assert len(plans) == len(roll) == max(ccfg.ROLLOUT_LENGTH, 1) + 1
+    assert all(bool(torch.isfinite(p.seq).all()) for p in plans)
+    done(t0)
+
+    t0 = phase(f"22 planner forms on {BATCH} sensed states")
+    # the trained actor's proposals; on the second half of the states they
+    # are raised by U(0, 2) m/s, as the actor's own never take over here
+    policy = ddpg.actor_jerk(actor, ccfg)
+    raised = torch.as_tensor(np.random.default_rng(22).uniform(0, 2, BATCH),
+                             dtype=torch.float32, device=dev)
+    raised[:BATCH // 2] = 0.0
+    proposed = _speed_from_jerk(states.ego_speed, states.ego_accel,
+                                policy(states), ccfg) + raised
+    states_cpu, proposed_cpu = to_cpu(states), proposed.cpu()
+    st_kernel.launches = 0
+    t = time.perf_counter()
+    speed_k, take_k = mpc.batched_conditional_st(states, proposed, ccfg)
+    torch.cuda.synchronize(dev)
+    card_s = time.perf_counter() - t
+    launches = st_kernel.launches
+    parts = [mpc.batched_conditional_st(
+        type(states)(*(x[i:i + 32] for x in states_cpu)),
+        proposed_cpu[i:i + 32], ccfg) for i in range(0, BATCH, 32)]
+    speed_d = torch.cat([p[0] for p in parts])
+    take_d = torch.cat([p[1] for p in parts])
+    take_k, speed_k = take_k.cpu(), speed_k.cpu()
+    agree = take_k == take_d
+    for i in torch.nonzero(~agree)[:, 0].tolist():
+        print(f"   state {i}: takeover card {bool(take_k[i])}, cpu "
+              f"{bool(take_d[i])}; speed {float(speed_k[i]):.4f} vs "
+              f"{float(speed_d[i]):.4f}, proposed "
+              f"{float(proposed_cpu[i]):.4f}", flush=True)
+    gap = float((speed_k - speed_d)[agree].abs().max())
+    # the single-scenario forms (dense DP on both sides), state by state
+    corridor, single_same = [], 0
+    for i in range(CORRIDOR_STATES):
+        pair, plans, verdicts = [], [], []
+        for st in (states, states_cpu):
+            one = type(st)(*(x[i] for x in st))
+            pair.append(float(mpc.st_control_speed(one, ccfg,
+                                                   use_corridor=True)[0]))
+            plan = mpc.plan_st(one, ccfg)
+            plans.append((int(plan.valid_len), plan.s_sequence.cpu()))
+            verdicts.append(bool(mpc.test_guaranteed_crash(one, ccfg)))
+        corridor.append(pair)
+        single_same += plans[0][0] == plans[1][0] \
+            and float((plans[0][1] - plans[1][1]).abs().max()) <= 1e-3 \
+            and verdicts[0] == verdicts[1]
+    corridor_gap = max(abs(a - b) for a, b in corridor)
+    # path_cost_report on a float64 lattice (random on-grid paths, one off
+    # the lattice, one that breaks every limit), card vs CPU
+    gen = np.random.default_rng(22)
+    s_values = np.arange(ccfg.num_s, dtype=np.float64) \
+        * ccfg.S_DISCRETIZATION
+    dist = gen.uniform(1.0, 50.0, (8, ccfg.num_t, ccfg.num_s))
+    seqs = np.cumsum(gen.integers(0, 30, (8, ccfg.num_t)), axis=1) \
+        * ccfg.S_DISCRETIZATION
+    seqs[6] += 0.013
+    seqs[7, 5:] += 40.0
+    cost_args = (seqs, gen.uniform(0, 15, 8), gen.uniform(-2, 2, 8))
+    reports = []
+    for d in (dev, torch.device("cpu")):
+        total, counts = mpc.path_cost_report(
+            *(torch.as_tensor(x, device=d) for x in cost_args),
+            ccfg.T_DISCRETIZATION, torch.as_tensor(dist, device=d),
+            torch.as_tensor(s_values, device=d)[None].expand(8, -1),
+            mpc.weights_from_settings(ccfg))
+        reports.append((total.cpu(), {k: v.cpu() for k, v in
+                                      counts.items()}))
+    fin = torch.isfinite(reports[1][0])
+    cost_gap = float(((reports[0][0] - reports[1][0]).abs()
+                      / reports[1][0].abs())[fin].max())
+    counts_same = all(torch.equal(reports[0][1][k], reports[1][1][k])
+                      for k in reports[1][1])
+    out["planner_forms"] = {
+        "conditional_launches": launches,
+        "conditional_flag_agreement": float(agree.float().mean()),
+        "takeovers_card": int(take_k.sum()), "takeovers_cpu":
+        int(take_d.sum()), "speed_gap_where_agree": gap,
+        "conditional_card_s": card_s,
+        "corridor_speeds_card_cpu": corridor,
+        "corridor_speed_gap": corridor_gap,
+        "plan_st_and_certificate_same": single_same,
+        "path_cost_rel_gap": cost_gap, "path_cost_finite": int(fin.sum()),
+        "violation_counts_same": counts_same,
+        "k1_launches_after_single_forms": st_kernel.launches}
+    print("   " + json.dumps(out["planner_forms"]) + " (bars: K1 +2 per "
+          "conditional call and none after, flags >= 0.97, corridor speeds "
+          f"within 1e-3 m/s, plan_st and the certificate the same on "
+          f"{CORRIDOR_STATES} of {CORRIDOR_STATES} states, path costs "
+          "within 1e-9 relative, counts identical)", flush=True)
+    assert launches == 2 and float(agree.float().mean()) >= 0.97
+    assert 0 < int(take_k.sum()) < BATCH
+    assert torch.isfinite(speed_k).all() and corridor_gap <= 1e-3
+    assert single_same == CORRIDOR_STATES and counts_same
+    assert cost_gap <= 1e-9 and 0 < int(fin.sum()) < 8
+    assert st_kernel.launches == 2
+    done(t0)
+    return out
+
+
+def dqn_tabular_gym_phases(dev, states) -> dict:
+    """Phases 23-25: the custom DQN, the tabular Q path and the Gym
+    adapter, with K1's count set to 0 before and read after (none of them
+    plans)."""
+    from rl_mpc_lanemerging_torch import tasks
+    from rl_mpc_lanemerging_torch._device import pin_fp32_matmul
+    from rl_mpc_lanemerging_torch.agents import budget, dqn
+    from rl_mpc_lanemerging_torch.checkpoint import load_dqn
+    from rl_mpc_lanemerging_torch.config import Settings
+    from rl_mpc_lanemerging_torch.envs import gym_compat
+    from rl_mpc_lanemerging_torch.ops import st_kernel
+    from rl_mpc_lanemerging_torch.rl import replay as rb
+    from rl_mpc_lanemerging_torch.rl import tabular
+    from rl_mpc_lanemerging_torch.rl.obs import state_vector
+    from rl_mpc_lanemerging_torch.rundir import RUNS_ROOT
+    from rl_mpc_lanemerging_torch.sim import CounterRandom, init_world
+
+    pin_fp32_matmul()
+    cpu = torch.device("cpu")
+    out = {}
+    st_kernel.launches = 0
+
+    t0 = phase(f"23 custom DQN: {TRAINED_DQN}; the trainer at B={BATCH}")
+    cfg = Settings.load_from_file(TRAIN_CONFIG)
+    sides = (("card", dev), ("cpu", cpu))
+    nets = {side: load_dqn(TRAINED_DQN, d, committed=True)
+            for side, d in sides}
+    with torch.no_grad():
+        q_card = nets["card"](state_vector(states, cfg)).cpu()
+        q_cpu = nets["cpu"](state_vector(to_cpu(states), cfg))
+    actions_same = torch.equal(q_card.argmax(-1), q_cpu.argmax(-1))
+    q_gap = float((q_card - q_cpu).abs().max())
+
+    # the trainer's loop until one episode ends: its rounds (timed), a
+    # target refresh and a 128-episode selection evaluation after each
+    # round that ends an episode, the snapshot saved
+    grad_steps = budget.grad_steps_per_round(cfg.TRAINING_STEPS_PER_EPISODE,
+                                             cfg.BATCH_SCENARIOS, DQN_TICKS)
+    added, rounds_s = [], []
+    real_add, real_round = rb.add_batch, dqn.train_round
+
+    def counting_add(*args, **kw):
+        added.append(args[6].sum())           # the valid rows
+        return real_add(*args, **kw)
+
+    def timed_round(*args, **kw):
+        t = time.perf_counter()
+        result = real_round(*args, **kw)
+        torch.cuda.synchronize(dev)
+        rounds_s.append(time.perf_counter() - t)
+        return result
+
+    rb.add_batch, dqn.train_round = counting_add, timed_round
+    steps = _counting(dqn, "_grad_step")
+    refreshes = _counting(dqn, "refresh_target")
+    tcfg = cfg.replace(LOG_DIR=DQN_LOG_DIR, TARGET_NET_FREEZE_PERIOD=1,
+                       EVALUATION_PERIOD=1)
+    try:
+        t = time.perf_counter()
+        state = dqn.train(tcfg, num_episodes=1, env_ticks=DQN_TICKS,
+                          device=dev, eval_episodes=TASK_EPISODES)
+        train_s = time.perf_counter() - t
+    finally:
+        rb.add_batch, dqn.train_round = real_add, real_round
+        dqn._grad_step, dqn.refresh_target = steps.fn, refreshes.fn
+    rep = {"s_per_round": rounds_s, "train_s": train_s,
+           "episodes": int(state.episodes),
+           "replay_size": int(state.replay.size),
+           "target_refreshes": refreshes.calls}
+    g = torch.Generator(device=dev).manual_seed(23)
+    step_ms = wall_ms(lambda: dqn._grad_step(
+        state.net, state.target_net, state.opt,
+        rb.sample(state.replay, cfg.BATCH_SIZE, generator=g)[1], cfg))
+    valid_frames = int(sum(added))
+    rep.update(grad_steps=steps.calls, grad_steps_per_round=grad_steps,
+               valid_frames=valid_frames, grad_step_ms=step_ms,
+               loss_sum=float(state.loss_sum))
+    assert rep["replay_size"] == valid_frames > 0, rep
+    assert steps.calls == grad_steps * len(rounds_s), rep
+    assert rep["episodes"] >= 1 and refreshes.calls >= 1, rep
+    assert os.path.exists(os.path.join(RUNS_ROOT, DQN_LOG_DIR, "params.npz"))
+    assert all(bool(torch.isfinite(p).all()) for p in state.net.parameters())
+
+    learners = {}
+    for side, d in sides:
+        net = load_dqn(TRAINED_DQN, d, committed=True).train()
+        net.requires_grad_(True)
+        target = load_dqn(TRAINED_DQN, d, committed=True)
+        with torch.no_grad():
+            for p in target.parameters():
+                p.mul_(0.9)
+        learners[side] = (d, net, target, dqn._adam(net, cfg.LEARNING_RATE))
+    losses = {"card": [], "cpu": []}
+    for _ in range(UPDATE_PARITY_STEPS):
+        b = rb.sample(state.replay, cfg.BATCH_SIZE, generator=g)[1]
+        for side, (d, *learner) in learners.items():
+            loss, _ = dqn._grad_step(*learner, {k: v.to(d) for k, v in
+                                                b.items()}, cfg)
+            losses[side].append(float(loss))
+    param_gap = _param_gap(learners["card"][1].parameters(),
+                           learners["cpu"][1].parameters())
+    loss_gap = max(abs(a - b) for a, b in zip(losses["card"],
+                                               losses["cpu"]))
+
+    ecfg = cfg.replace(BATCH_SCENARIOS=TASK_EPISODES,
+                       NUM_EPISODES=TASK_EPISODES)
+    t = time.perf_counter()
+    agg = tasks.evaluate_controller(
+        ecfg, dqn.greedy_controller(nets["card"], ecfg), device=dev,
+        verbose=False)
+    ev = round_report(agg, ecfg)
+    ev["sem"] = {k: float(np.std(agg.columns[c]) / np.sqrt(len(
+        agg.columns[c]))) for k, c in (("crash", "crashed"),
+                                       ("merge", "merged"))}
+    ev["seconds"] = time.perf_counter() - t
+    out["dqn"] = {"greedy_actions_identical": actions_same, "q_gap": q_gap,
+                  "round": rep, "grad_step_rel_param_gap": param_gap,
+                  "grad_step_loss_gap": loss_gap, "evaluation": ev}
+    print(f"   greedy actions card vs CPU on {BATCH} states identical: "
+          f"{actions_same} (max |Q| gap {q_gap:.3g}); train round: "
+          + json.dumps(rep) + f"; {UPDATE_PARITY_STEPS} grad steps card vs "
+          f"CPU: relative parameter gap {param_gap:.3g} (bar <= 1e-4), "
+          f"loss gap {loss_gap:.3g}; greedy evaluation: " + json.dumps(ev)
+          + "; run_data.csv line 218: crash 0.0, merge 1.0, |jerk| 0.3602, "
+          "time to merge 26.35 s (bars: crash <= 0.05, merge >= 0.90)",
+          flush=True)
+    assert actions_same and param_gap <= 1e-4
+    assert ev["crash"] <= 0.05 and ev["merge"] >= 0.90, ev
+    done(t0)
+
+    t0 = phase(f"24 tabular Q: a collect round at B={TABULAR_BATCH} and its "
+               f"fold on the card and the CPU")
+    base = Settings()
+    qcfg = base.replace(TASK="TRAIN_Q", REWARD_FUNCTION="Slotted",
+                        TICK_LENGTH=base.TRAINING_TICK_LENGTH,
+                        JERK_VALUES_DQN=base.JERK_VALUES)
+    ticks = int(qcfg.MAX_EPISODE_LENGTH / qcfg.TICK_LENGTH) \
+        + int(20.0 / qcfg.TICK_LENGTH) + 2
+    t = time.perf_counter()
+    rec = tabular.collect_random_round(
+        qcfg, init_world(qcfg, TABULAR_BATCH, torch.float32, dev),
+        CounterRandom(24), ticks, torch.Generator(device=dev).manual_seed(24))
+    torch.cuda.synchronize(dev)
+    collect_s = time.perf_counter() - t
+    tables, fold_s = {}, {}
+    for side, d in sides:
+        q = tabular.initialize_q(qcfg, device=d)
+        visits = tabular.initialize_q(qcfg, device=d)
+        r = tabular.EpisodeRecords(*(tuple(x.to(d) for x in f)
+                                     if isinstance(f, tuple) else f.to(d)
+                                     for f in rec))
+        t = time.perf_counter()
+        tabular.fold_episodes(q, visits, r.states6, r.actions, r.rewards,
+                              r.valid, qcfg.GAMMA, qcfg.STEP_SIZE)
+        visits.sum().item()                   # waits for the fold
+        fold_s[side] = time.perf_counter() - t
+        tables[side] = (q.cpu(), visits.cpu())
+    q_gap = float((tables["card"][0] - tables["cpu"][0]).abs().max())
+    visits_same = torch.equal(tables["card"][1], tables["cpu"][1])
+    # the single-episode form on the first scenario's episode
+    first = []
+    for side, d in sides:
+        q = tabular.initialize_q(qcfg, device=d)
+        tabular.q_update_episode(
+            q, tabular.initialize_q(qcfg, device=d),
+            tuple(x[0].to(d) for x in rec.states6), rec.actions[0].to(d),
+            rec.rewards[0].to(d), rec.valid[0].to(d), qcfg.GAMMA,
+            qcfg.STEP_SIZE)
+        first.append(q.cpu())
+    q_gap = max(q_gap, float((first[0] - first[1]).abs().max()))
+    valid_steps = int(rec.valid.sum())
+    q_table = torch.as_tensor(np.load(TABULAR_Q), device=dev)
+    ecfg = qcfg.replace(TICK_LENGTH=qcfg.EVALUATION_TICK_LENGTH,
+                        BATCH_SCENARIOS=TASK_EPISODES)
+    t = time.perf_counter()
+    agg = tasks.evaluate_controller(
+        ecfg, tabular.greedy_tabular_controller(q_table, None, ecfg),
+        num_episodes=TASK_EPISODES, device=dev,
+        max_episode_length=qcfg.EVALUATION_EPISODE_LENGTH, verbose=False)
+    ev = round_report(agg, ecfg)
+    ev["seconds"] = time.perf_counter() - t
+    out["tabular"] = {"ticks": ticks, "episodes": TABULAR_BATCH,
+                      "valid_steps": valid_steps, "collect_s": collect_s,
+                      "fold_s": fold_s, "q_gap": q_gap,
+                      "visits_identical": visits_same,
+                      "visited_pairs": int((tables["cpu"][1] > 0).sum()),
+                      "greedy_evaluation": ev}
+    print("   " + json.dumps(out["tabular"]) + "; run_data.csv lines 171 / "
+          "175 (the trained table with its visit table): crash 1.0 / 1.0, "
+          "merge 0.0 / 0.0 (bars: Q within 1e-6, visits identical)",
+          flush=True)
+    assert q_gap <= 1e-6 and visits_same and valid_steps > 0
+    assert ev["episodes"] == TASK_EPISODES
+    done(t0)
+
+    t0 = phase(f"25 Gym envs, {GYM_STEPS} steps each on the card and the "
+               f"CPU")
+    gym_out = {}
+    for cls in (gym_compat.JerkEnv, gym_compat.AccelerationEnv,
+                gym_compat.ContinuousJerkEnv):
+        runs = {}
+        for side, d in sides:
+            env = cls({"settings": base, "wait_before_start": GYM_WAIT,
+                       "seed": 25, "device": d})
+            rng = np.random.default_rng(25)
+            obs, _ = env.reset()
+            trace = [(obs, 0.0, False, False, {})]
+            for _ in range(GYM_STEPS):
+                if env._env is None:
+                    obs, _ = env.reset()
+                space = env.action_space
+                action = rng.uniform(space.low, space.high).astype(
+                    np.float32) if hasattr(space, "low") \
+                    else int(rng.integers(space.n))
+                trace.append(env.step(action))
+            runs[side] = trace
+        flags_same = all(a[2:] == b[2:] for a, b in
+                         zip(runs["card"], runs["cpu"]))
+        obs_gap = max(float(np.abs(a[0] - b[0]).max()) for a, b in
+                      zip(runs["card"], runs["cpu"]))
+        reward_gap = max(abs(a[1] - b[1]) for a, b in
+                         zip(runs["card"], runs["cpu"]))
+        gym_out[cls.__name__] = {"flags_identical": flags_same,
+                                 "obs_gap": obs_gap,
+                                 "reward_gap": reward_gap}
+        assert flags_same and obs_gap <= 1e-4, gym_out
+    gym_out["registered"] = gym_compat.register_environments()
+    out["gym"] = gym_out
+    out["k1_launches"] = st_kernel.launches
+    print("   " + json.dumps(gym_out) + f"; K1 launches in phases 23-25: "
+          f"{st_kernel.launches} (bars: flags identical, observations within "
+          "1e-4, 0 K1 launches; the IDs register only where gymnasium or gym "
+          "is installed)", flush=True)
+    assert st_kernel.launches == 0
+    done(t0)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1092,7 +1595,10 @@ def main() -> int:
     from rl_mpc_lanemerging_torch.sim import (CounterRandom, add_ego,
                                               init_world, sense, warmup,
                                               world_step)
+    from rl_mpc_lanemerging_torch.sim.episode import (empty_history,
+                                                      record_tick)
 
+    t_script = time.perf_counter()
     t0 = phase("1 device")
     card = card_line()
     print(card, flush=True)
@@ -1208,7 +1714,7 @@ def main() -> int:
     assert torch.isfinite(speed_gpu).all() and gap <= 1e-3
     done(t0)
 
-    t0 = phase("6 main path: evaluate_controller, st_default, B=128")
+    t0 = phase("6 main path: evaluate_st (history on), st_default, B=128")
     ticks_run = 0
 
     def counted(state):
@@ -1216,14 +1722,18 @@ def main() -> int:
         ticks_run += 1
         return controller(state)
 
-    main_cfg = cfg.replace(BATCH_SCENARIOS=BATCH)
-    st_kernel.launches = 0
-    t_main = time.perf_counter()
-    agg = tasks.evaluate_controller(
-        main_cfg, counted, num_episodes=BATCH, device=dev,
-        max_episode_length=MAX_EPISODE_LENGTH, verbose=False)
-    main_s = time.perf_counter() - t_main
-    launches = st_kernel.launches
+    main_cfg = cfg.replace(BATCH_SCENARIOS=BATCH, NUM_EPISODES=BATCH,
+                           LOG_DIR="chip_smoke_st")
+    make_controller = mpc.make_batched_controller
+    mpc.make_batched_controller = lambda c: counted
+    try:
+        st_kernel.launches = 0
+        t_main = time.perf_counter()
+        agg = tasks.evaluate_st(main_cfg, device=dev, verbose=False)
+        main_s = time.perf_counter() - t_main
+        launches = st_kernel.launches
+    finally:
+        mpc.make_batched_controller = make_controller
     cols = agg.columns
     crash = float(np.mean(cols["crashed"]))
     merge = float(np.mean(cols["merged"]))
@@ -1233,8 +1743,8 @@ def main() -> int:
     print(f"   max_episode_length {MAX_EPISODE_LENGTH} s; crash {crash:.4f} "
           f"merge {merge:.4f} mean ticks {mean_ticks:.1f} mean |jerk| "
           f"{jerk:.4f}; {ticks_run} control ticks in {main_s:.2f} s = "
-          f"{s_per_tick:.4f} s per tick (warmup included); st_wavefront "
-          f"launches {launches}", flush=True)
+          f"{s_per_tick:.4f} s per tick (warmup and the history included); "
+          f"st_wavefront launches {launches}", flush=True)
     assert len(cols["crashed"]) == BATCH and np.isfinite(jerk)
     assert launches == ticks_run > 0, (launches, ticks_run)
     done(t0)
@@ -1243,6 +1753,12 @@ def main() -> int:
     a0 = args[3]
     op = qp.build_operator(cfg.fine_horizon, cfg.TICK_LENGTH)
     seq, valid, _ = mpc.batched_plan(states, cfg, use_kernel=True)
+    # the recording's per-tick cost: run_episode_batch's own write
+    # (record_tick) into a (B, 501, ...) history, every scenario active
+    history = empty_history(states, int(MAX_EPISODE_LENGTH / cfg.TICK_LENGTH))
+    active = torch.ones((BATCH,), dtype=torch.bool, device=dev)
+    at = torch.full((BATCH,), 7, dtype=torch.int32, device=dev)
+
     split = {
         "sense_ms": wall_ms(lambda: sense(worlds0, cfg)),
         "grid_build_ms": wall_ms(lambda: build_st_grid(states, cfg)),
@@ -1256,6 +1772,8 @@ def main() -> int:
         "world_step_ms": wall_ms(lambda: world_step(
             worlds0, states.ego_speed, cfg, rng)),
         "controller_ms": wall_ms(lambda: controller(states)),
+        "history_write_ms": wall_ms(
+            lambda: record_tick(history, states, active, at)),
     }
     print("   tick split (host ms, synchronised): "
           + json.dumps({k: round(v, 3) for k, v in split.items()}),
@@ -1347,7 +1865,7 @@ def main() -> int:
           f"full-scan kernel {earlier_ms:.5f} ms (wrapper "
           f"{earlier_wrapper_ms:.5f}), plain version {plain_ms:.4f} ms; "
           f"visited pairs {visited_pairs} vs {pairs} in-band pairs "
-          f"({visited_pairs / pairs:.3f} x; B=1024: "
+          f"({visited_pairs / pairs:.3f} x; B={n_grids}: "
           f"{int(visited_all.item())}); {cells} reachable cells, "
           f"{window_cells} window cells; bytes {n_bytes} "
           f"({bytes_ms:.5f} ms; every input cell once: {all_bytes}, "
@@ -1359,6 +1877,11 @@ def main() -> int:
 
     comb = combined_phases(dev, states, worlds0, kw)
     train = training_phases(dev)
+    t_new = time.perf_counter()
+    forms = forensics_phases(dev, states)
+    rest = dqn_tabular_gym_phases(dev, states)
+    print(f"   phases 20-25: {time.perf_counter() - t_new:.2f} s; the script: "
+          f"{time.perf_counter() - t_script:.2f} s", flush=True)
 
     kernels = [{
         "name": "st_wavefront",
@@ -1395,6 +1918,11 @@ def main() -> int:
         "launches_training_paths": train["ddpg_rounds"]["k1_launches"]
         + train["rainbow_rounds"]["k1_launches"]
         + train["tasks"]["k1_launches"],
+        "launches_conditional_st_call":
+        forms["planner_forms"]["conditional_launches"],
+        "launches_capture_replay_rollout_plans":
+        forms["replay"]["k1_launches"],
+        "launches_dqn_tabular_gym": rest["k1_launches"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import os
 import time
 from typing import Optional
 
@@ -41,9 +42,11 @@ from .._device import pin_fp32_matmul, resolve_device
 from ..checkpoint import load_actor, load_params, save_params
 from ..config import Settings
 from ..envs.merge_env import EnvKind, MergeEnvState, env_reset, env_step
+from ..forensics import plot_rollouts
 from ..models.ddpg import DDPGActor, DDPGCritic
 from ..rl import replay as rb
 from ..rl.obs import state_vector
+from ..rundir import RUNS_ROOT
 from ..sim.world import WorldState
 from ..stats import StatsAggregator
 from .combined import _speed_from_jerk, combined_controller
@@ -442,15 +445,17 @@ def _actor_on(cfg: Settings, actor: Optional[DDPGActor], dev) -> DDPGActor:
 def evaluate(cfg: Settings, actor: Optional[DDPGActor] = None,
              device="cuda", verbose: bool = True) -> StatsAggregator:
     """EVALUATE_DDPG (reference main.py:32-34 -> dqn.py:202-213): the
-    actor of ``cfg.MODEL_NAME`` alone drives the ego."""
+    actor of ``cfg.MODEL_NAME`` alone drives the ego; then the actor's
+    virtual rollouts are drawn under ``runs_torch/<LOG_DIR>/plots``
+    (``forensics.plot_rollouts``)."""
     from .. import tasks
     dev = resolve_device(device)
-    controller = actor_controller(_actor_on(cfg, actor, dev), cfg)
-    agg = tasks.evaluate_controller(cfg, controller, device=dev,
-                                    verbose=verbose)
-    # the JAX package also draws rollout plots here (forensics.py), which
-    # the port does not have yet
+    actor = _actor_on(cfg, actor, dev)
+    agg = tasks.evaluate_controller(cfg, actor_controller(actor, cfg),
+                                    device=dev, verbose=verbose)
     tasks.report(agg, cfg, verbose)
+    plot_rollouts(actor_jerk(actor, cfg), cfg,
+                  os.path.join(RUNS_ROOT, cfg.LOG_DIR, "plots"), device=dev)
     return agg
 
 

@@ -4,8 +4,8 @@ The JAX package keeps its networks as orbax checkpoints under
 ``runs/<name>/params`` (``rl_mpc_lanemerging_tpu/checkpoint.py``).  The port
 reads neither orbax nor JAX.  Its checkpoints are ``.npz`` files of float32
 arrays in the Flax layout, one key per leaf: ``<net>/<layer>/<leaf>``, e.g.
-``actor/Dense_0/kernel`` (in, out), ``critic/Dense_2/bias`` or
-``q_dist/NoisyDense_1/w_sigma``.  ``load_params`` returns them as the JAX
+``actor/Dense_0/kernel`` (in, out), ``critic/Dense_2/bias``,
+``q_dist/NoisyDense_1/w_sigma`` or ``q/Dense_1/kernel``.  ``load_params`` returns them as the JAX
 package's ``load_params`` does, ``{net: {"params": {layer: {leaf:
 array}}}}``, and ``convert.py`` turns such a tree into a module's
 ``state_dict``.  Two places hold them:
@@ -30,11 +30,12 @@ import numpy as np
 
 from . import convert
 from .models.ddpg import DDPGActor
+from .models.mlp import DQNNet
 from .rundir import RUNS_ROOT
 
 __all__ = ["WEIGHTS_DIR", "EXPORT_SCRIPT", "weights_path", "params_path",
            "write_npz", "save_params", "load_params", "load_actor_tree",
-           "load_actor"]
+           "load_actor", "load_dqn"]
 
 WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "weights")
@@ -115,3 +116,16 @@ def load_actor(model_name: str, device, action_low: float = -5.0,
     actor = DDPGActor(obs_dim, action_low, action_high, hidden)
     actor.load_state_dict(state)
     return actor.to(device).eval().requires_grad_(False)
+
+
+def load_dqn(model_name: str, device, committed: bool = False) -> DQNNet:
+    """The custom DQN's Q network (net key ``q``) of ``MODEL_NAME`` on
+    ``device``, in eval mode and with no gradients; its widths come from
+    the stored kernels."""
+    state = convert.dqn_from_numpy(load_params(model_name, committed)["q"])
+    n = len(state) // 2
+    hidden, obs_dim = state["layers.Dense_0.weight"].shape
+    outputs = state[f"layers.Dense_{n - 1}.weight"].shape[0]
+    net = DQNNet(obs_dim, outputs, hidden, num_hidden=n)
+    net.load_state_dict(state)
+    return net.to(device).eval().requires_grad_(False)

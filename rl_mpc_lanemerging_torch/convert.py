@@ -1,7 +1,7 @@
 """State carried across from the JAX package to the port.
 
-What crosses is configuration, simulator state and the trained DDPG and
-Rainbow networks.  Inputs are plain numpy (dicts of arrays keyed by field name, e.g.
+What crosses is configuration, simulator state and the trained DDPG,
+Rainbow and custom DQN networks.  Inputs are plain numpy (dicts of arrays keyed by field name, e.g.
 ``jax.tree.map(np.asarray, state)._asdict()`` on the JAX side; the Flax
 parameter tree as nested dicts of arrays), so this module imports nothing
 of JAX.
@@ -21,7 +21,7 @@ from .sim.world import WorldState
 __all__ = ["settings_from_json", "highway_state_from_numpy",
            "world_state_from_numpy", "ddpg_actor_from_numpy",
            "ddpg_critic_from_numpy", "rainbow_from_numpy",
-           "tree_from_state_dict",
+           "dqn_from_numpy", "tree_from_state_dict", "layer_names",
            "DENSE_LAYERS", "NOISY_LAYERS"]
 
 # the Flax modules of the JAX package's DDPGActor and DDPGCritic, in order
@@ -61,16 +61,23 @@ def world_state_from_numpy(d: Mapping[str, np.ndarray], device,
     return WorldState(**fields)
 
 
-def _dense_state_dict(tree) -> Dict[str, torch.Tensor]:
+def layer_names(params, kind: str = "Dense") -> tuple:
+    """``<kind>_0 .. <kind>_{n-1}`` (``kind`` a Flax module name such as
+    ``Dense`` or ``NoisyDense``) when those are exactly the layers of a
+    Flax parameter dict, else ()."""
+    names = tuple(f"{kind}_{i}" for i in range(len(params)))
+    return names if sorted(params) == sorted(names) else ()
+
+
+def _dense_state_dict(tree, layers=DENSE_LAYERS) -> Dict[str, torch.Tensor]:
     """Flax ``{'params': {'Dense_i': {'kernel' (in, out), 'bias'}}}`` as the
     ``state_dict`` of the port's module: ``nn.Linear.weight`` is (out, in),
     so ``weight = kernel.T``."""
     params = tree["params"]
-    if sorted(params) != list(DENSE_LAYERS):
-        raise ValueError(f"expected layers {DENSE_LAYERS}, got "
-                         f"{sorted(params)}")
+    if sorted(params) != sorted(layers) or not layers:
+        raise ValueError(f"expected layers {layers}, got {sorted(params)}")
     out = {}
-    for name in DENSE_LAYERS:
+    for name in layers:
         kernel = np.asarray(params[name]["kernel"])
         bias = np.asarray(params[name]["bias"])
         if kernel.ndim != 2 or bias.shape != (kernel.shape[1],):
@@ -93,6 +100,16 @@ def ddpg_critic_from_numpy(tree) -> Dict[str, torch.Tensor]:
     return _dense_state_dict(tree)
 
 
+def dqn_from_numpy(tree) -> Dict[str, torch.Tensor]:
+    """``DQNNet.state_dict()`` from the JAX ``q`` parameter tree of the
+    custom DQN (``Dense_0 .. Dense_{num_hidden-1}``)."""
+    layers = layer_names(tree["params"])
+    if len(layers) < 2:
+        raise ValueError(f"expected layers Dense_0 .. Dense_k (k >= 1), got "
+                         f"{sorted(tree['params'])}")
+    return _dense_state_dict(tree, layers)
+
+
 def rainbow_from_numpy(tree) -> Dict[str, torch.Tensor]:
     """``RainbowNet.state_dict()`` from the JAX ``q_dist`` parameter tree:
     the port's noisy layers keep the Flax layout, so every leaf crosses
@@ -108,8 +125,8 @@ def rainbow_from_numpy(tree) -> Dict[str, torch.Tensor]:
 
 def tree_from_state_dict(state_dict: Mapping[str, torch.Tensor]):
     """The Flax parameter tree ``{"params": {layer: {leaf: array}}}`` of a
-    port network's ``state_dict`` (``DDPGActor``, ``DDPGCritic`` or
-    ``RainbowNet``), as numpy: the inverse of the ``*_from_numpy``
+    port network's ``state_dict`` (``DDPGActor``, ``DDPGCritic``,
+    ``RainbowNet`` or ``DQNNet``), as numpy: the inverse of the ``*_from_numpy``
     functions above."""
     params: Dict[str, dict] = {}
     for key, value in state_dict.items():

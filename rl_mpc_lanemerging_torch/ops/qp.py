@@ -8,7 +8,8 @@ Port of ``rl_mpc_lanemerging_tpu/ops/qp.py`` (the reference's cvxopt
 with ``x`` the fine-grid s trajectory (n = cfg.fine_horizon), ``b`` the
 linear interpolation of the coarse DP path, and ``A`` the row-normalized
 velocity / acceleration / jerk difference operators plus the start-point pin
-and the (inert) position rows.  The operator is static: it and its ADMM
+and the position rows (the lead/trail corridor, inert unless bounds are
+given).  The operator is static: it and its ADMM
 normal-matrix inverse are built once per configuration on the host in
 numpy, then moved to the device once.  The batched solve is plain
 (B, m) x (m, n) products, which go to ``torch.matmul``; they must run in
@@ -51,7 +52,8 @@ def build_operator(n: int, delta_t: float, rho: float = 20.0) -> QPOperator:
       [n-1, 2n-2):     acceleration rows; row 0 is the boundary form
       [2n-2, 3n-3):    jerk rows; rows 0 and 1 are the boundary forms
       [3n-3]:          start equality e_0
-      [3n-2, 4n-2):    position rows (the corridor; inert at +-_BIG)
+      [3n-2, 4n-2):    position rows (the corridor; inert at +-_BIG
+                       unless ``finer_fit_qp`` is given bounds)
     """
     dt = float(delta_t)
     dt2, dt3 = dt * dt, dt * dt * dt
@@ -131,7 +133,8 @@ def _interp_coarse(coarse_seq, valid_len, n, delta_t, coarse_delta_t):
 def finer_fit_qp(coarse_seq, valid_len, start_speed, start_acceleration,
                  op: QPOperator, coarse_delta_t: float,
                  max_speed: float, pos_accel: float, neg_accel: float,
-                 pos_jerk: float, neg_jerk: float, iterations: int = 100):
+                 pos_jerk: float, neg_jerk: float, iterations: int = 100,
+                 pos_lo=None, pos_hi=None):
     """Smooth a batch of coarse DP paths onto the fine tick grid.
 
     Args:
@@ -141,6 +144,9 @@ def finer_fit_qp(coarse_seq, valid_len, start_speed, start_acceleration,
         boundary-row bounds (reference st.py:628, 638, 648, 653, 664, 666).
       op: static operator from :func:`build_operator`.
       iterations: fixed ADMM iteration count.
+      pos_lo/pos_hi: optional (B, n) position corridor (reference
+        st.py:672-705), +-inf allowed; the start row and the rows past the
+        fine length are relaxed.
 
     Returns ((B, n) smoothed trajectories, (B,) fine lengths).
     """
@@ -189,12 +195,21 @@ def finer_fit_qp(coarse_seq, valid_len, start_speed, start_acceleration,
     j_lo = torch.where(live, j_lo, -_BIG)
     j_hi = torch.where(live, j_hi, _BIG)
 
-    # position rows: no corridor on this path, so every row is inert
+    # corridor rows: per-step position box (reference st.py:672-705); the
+    # start point is pinned anyway, so its corridor row is relaxed
     s0 = coarse_seq[:, :1]
-    p_lo = torch.full((batch, n), -_BIG, dtype=dtype,
-                      device=coarse_seq.device)
-    lo = torch.cat([v_lo, a_lo, j_lo, s0, p_lo], dim=1)
-    hi = torch.cat([v_hi, a_hi, j_hi, s0, -p_lo], dim=1)
+    live_pos = torch.arange(n, device=coarse_seq.device)[None, :] \
+        <= (fine_len - 1)[:, None]
+    live_pos[:, 0] = False
+
+    def corridor(bound, big):
+        if bound is None:
+            return torch.full((batch, n), big, dtype=dtype,
+                              device=coarse_seq.device)
+        return torch.where(live_pos, bound.to(dtype), big)
+
+    lo = torch.cat([v_lo, a_lo, j_lo, s0, corridor(pos_lo, -_BIG)], dim=1)
+    hi = torch.cat([v_hi, a_hi, j_hi, s0, corridor(pos_hi, _BIG)], dim=1)
 
     a_mat, a_t, solve_t, scale, row_sums = _device_operator(
         op, coarse_seq.device, dtype)

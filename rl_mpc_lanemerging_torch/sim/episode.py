@@ -30,7 +30,7 @@ from ..prediction import HighwayState, get_closest_cars
 from .world import WorldState, add_ego, remove_ego, sense, world_step
 
 __all__ = ["EpisodeStats", "BIN_EDGES", "warmup", "run_episode_batch",
-           "Controller"]
+           "Controller", "empty_history", "record_tick"]
 
 # x-histogram bins of the stats aggregator (reference stats.py:33)
 BIN_EDGES = np.arange(-220, 61, 20).astype(np.float64)
@@ -173,10 +173,33 @@ def _select_world(mask, new: WorldState, old: WorldState) -> WorldState:
     return WorldState(*(_mask_select(mask, a, b) for a, b in zip(new, old)))
 
 
+def empty_history(state: HighwayState, max_ticks: int) -> HighwayState:
+    """A zeroed (B, max_ticks + 1, ...) history of ``state``'s fields, on
+    its device: one row per control tick and a scratch row last."""
+    batch = state.ego_x.shape[0]
+    return HighwayState(*(
+        torch.zeros((batch, max_ticks + 1) + x.shape[1:], dtype=x.dtype,
+                    device=x.device) for x in state))
+
+
+def record_tick(history: HighwayState, state: HighwayState,
+                active: torch.Tensor, ticks: torch.Tensor) -> None:
+    """Write ``state`` into row ``ticks`` of each active scenario's
+    history, and into the scratch row of each frozen one (reference
+    episode.py: frozen scenarios write row max_ticks).  One indexed write
+    per field and no host read."""
+    rows = torch.arange(active.shape[0], device=active.device)
+    idx = torch.where(active, ticks,
+                      history.ego_x.shape[1] - 1).to(torch.int64)
+    for h, x in zip(history, state):
+        h.index_put_((rows, idx), x)
+
+
 def run_episode_batch(world: WorldState, cfg: Settings,
                       controller: Controller, rng,
                       max_episode_length: float = 100.0,
                       wait_before_start: float = 50.0,
+                      record_history: bool = False,
                       controller_carry=None):
     """One full episode for every scenario in the batch.
 
@@ -184,6 +207,14 @@ def run_episode_batch(world: WorldState, cfg: Settings,
     scenario has terminated (arrival / collision / tick budget); scenarios
     that finish early are frozen.  ``rng`` is the draw source
     (``sim/rng.py``).
+
+    ``record_history``: also return the sensed ``HighwayState`` of every
+    control tick as a (B, max_ticks + 1, ...) history on the device (the
+    crash-forensics capture; reference control.py:280-281 state_history +
+    stats.py:75-77 crash pickling): row t of scenario b is the state sensed
+    at its control tick t, and a frozen scenario writes the scratch row
+    ``max_ticks``.  The return is then (world_after, EpisodeStats,
+    history).
 
     A controller may return ``(speed, flag)`` in place of the speeds alone:
     the flag (B,) of active scenarios is summed into ``aux_sum`` and into
@@ -195,7 +226,7 @@ def run_episode_batch(world: WorldState, cfg: Settings,
     carry)``, the carry persists across ticks and, handed back in by the
     caller, across rounds (like the reference's ``takeover_history``,
     dqn.py:126-127, which is never reset), and it is returned last:
-    (world_after, EpisodeStats, carry).
+    (world_after, EpisodeStats[, history], carry).
     """
     batch = world.ego_arc.shape[0]
     dtype = world.ego_arc.dtype
@@ -213,6 +244,8 @@ def run_episode_batch(world: WorldState, cfg: Settings,
         start_speed=start_speeds)
     prev_a = torch.zeros((batch,), dtype=dtype, device=device)
     done = torch.zeros((batch,), dtype=torch.bool, device=device)
+    history = (empty_history(sense(world, cfg), max_ticks)
+               if record_history else None)
     tick = 1
     while tick <= max_ticks and not bool(done.all()):
         arrived = world.ego_arrived & ~done
@@ -223,6 +256,8 @@ def run_episode_batch(world: WorldState, cfg: Settings,
         active = ~done
 
         state = sense(world, cfg)
+        if history is not None:
+            record_tick(history, state, active, stats.ticks)
         stats = _tick_metrics(stats, state, prev_a, active, cfg)
         prev_a = torch.where(active, state.ego_accel.to(dtype), prev_a)
 
@@ -249,6 +284,7 @@ def run_episode_batch(world: WorldState, cfg: Settings,
     # tick-budget overrun: remove ego, not merged, not crashed
     # (control.py:312-316)
     world = _select_world(~done, remove_ego(world), world)
+    out = (world, stats) if history is None else (world, stats, history)
     if controller_carry is not None:
-        return world, stats, controller_carry
-    return world, stats
+        out = out + (controller_carry,)
+    return out

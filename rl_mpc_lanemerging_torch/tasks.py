@@ -51,6 +51,8 @@ def evaluate_controller(cfg: Settings, controller: Controller,
                         wait_before_start: float = 50.0,
                         verbose: bool = True,
                         custom_stats: Optional[Callable] = None,
+                        save_state_on_crash: bool = False,
+                        run_dir: str = ".",
                         controller_carry=None) -> StatsAggregator:
     """Batched ``evaluate_control`` (reference control.py:343-363): run
     ceil(num_episodes / batch) rounds of lockstep episodes and aggregate the
@@ -60,7 +62,9 @@ def evaluate_controller(cfg: Settings, controller: Controller,
     ``custom_stats``: EpisodeStats -> dict of per-episode arrays, aggregated
     beside the standard columns.  ``controller_carry``: per-scenario state
     of a stateful controller (``run_episode_batch``), threaded through every
-    round."""
+    round.  ``save_state_on_crash``: record every tick's sensed state and
+    pickle each crashing episode's history under ``run_dir``
+    (``forensics.dump_crashes``, tagged ``r<round>_``)."""
     num_episodes = num_episodes or cfg.NUM_EPISODES
     worlds, rng = make_worlds(cfg, batch, dtype, resolve_device(device))
     batch = worlds.ego_arc.shape[0]
@@ -73,6 +77,7 @@ def evaluate_controller(cfg: Settings, controller: Controller,
             worlds, cfg, controller, rng,
             max_episode_length=max_episode_length,
             wait_before_start=wait_before_start,
+            record_history=save_state_on_crash,
             controller_carry=controller_carry)
         if controller_carry is not None:
             controller_carry = out[-1]
@@ -80,6 +85,10 @@ def evaluate_controller(cfg: Settings, controller: Controller,
         if worlds.ego_arc.is_cuda:
             torch.cuda.synchronize(worlds.ego_arc.device)
         wall = time.perf_counter() - t0
+        # the history leaves the device only when a scenario crashed
+        if save_state_on_crash and bool(stats.crashed.any()):
+            from .forensics import dump_crashes
+            dump_crashes(stats, out[2], run_dir=run_dir, tag=f"r{r}_")
         agg.add_batch(stats, wall_clock_seconds=wall,
                       custom=custom_stats(stats) if custom_stats else None)
         crashes.append(stats.crashed.float().mean().item())
@@ -107,7 +116,8 @@ def evaluate_st(cfg: Settings, num_episodes: Optional[int] = None,
                 verbose: bool = True) -> StatsAggregator:
     """TASK="ST": pure MPC evaluation (reference st.py:817-824) with the
     production controller: the CUDA kernel on the card, the dense DP on the
-    CPU."""
+    CPU.  Crashing episodes are dumped to ``runs_torch/<LOG_DIR>`` for
+    offline replay (reference st.py:822-824 evaluate_st_and_dump_crash)."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         # build the kernel before the first round so that no round's wall
@@ -116,6 +126,8 @@ def evaluate_st(cfg: Settings, num_episodes: Optional[int] = None,
         st_kernel.load_kernel()
     controller = mpc.make_batched_controller(cfg)
     agg = evaluate_controller(cfg, controller, num_episodes, dtype=dtype,
-                              device=dev, verbose=verbose)
+                              device=dev, verbose=verbose,
+                              save_state_on_crash=True,
+                              run_dir=os.path.join(RUNS_ROOT, cfg.LOG_DIR))
     report(agg, cfg, verbose)
     return agg

@@ -5,10 +5,12 @@ for the PyTorch port.
 
 With no arguments it converts the five DDPG runs that serve every
 ``combined_*_1``, ``combined_*_1b``, ``cross_*_1`` and ``cross_*_1b``
-configuration, and the Rainbow run ``runs/rainbow_default1_extended``.  For
-each run directory it restores ``<run>/params`` with the JAX package's
-``checkpoint.load_params`` and writes every network in it (a DDPG run's
-``actor`` and ``critic``, a Rainbow run's ``q_dist``) to
+configuration, the Rainbow run ``runs/rainbow_default1_extended`` and the
+custom DQN run ``runs/dqn_custom_default1``.  For each run directory it
+restores ``<run>/params`` with the JAX package's ``checkpoint.load_params``
+and writes every network in it (a DDPG run's ``actor`` and ``critic``, a
+Rainbow run's ``q_dist``, a custom DQN run's ``q``; any net whose layers
+are ``Dense_0 .. Dense_k`` or ``NoisyDense_0 .. NoisyDense_k``) to
 ``rl_mpc_lanemerging_torch/weights/<name>.npz``, one float32 array per leaf
 under ``<net>/<layer>/<leaf>`` in the Flax layout (``Dense_i/kernel`` is
 (in, out)), the layout ``rl_mpc_lanemerging_torch/checkpoint.py`` reads.
@@ -27,25 +29,21 @@ sys.path.insert(0, REPO)
 
 from rl_mpc_lanemerging_torch.checkpoint import (weights_path,  # noqa: E402
                                                  write_npz)
-from rl_mpc_lanemerging_torch.convert import (DENSE_LAYERS,  # noqa: E402
-                                              NOISY_LAYERS)
-
+from rl_mpc_lanemerging_torch.convert import layer_names  # noqa: E402
 DEFAULT_RUNS = tuple(f"runs/ddpg_{name}1_extended" for name in
                      ("default", "fast", "low", "medium", "moderate")) \
-    + ("runs/rainbow_default1_extended",)
-# the networks a run may hold, and the layers each must have
-NETS = {"actor": DENSE_LAYERS, "critic": DENSE_LAYERS, "q_dist": NOISY_LAYERS}
+    + ("runs/rainbow_default1_extended", "runs/dqn_custom_default1")
+LAYER_KINDS = ("Dense", "NoisyDense")
 
 
 def export(run_dir: str) -> str:
     import numpy as np
     from rl_mpc_lanemerging_tpu.checkpoint import load_params
     restored = load_params(os.path.join(REPO, run_dir))
-    if not set(restored) <= set(NETS):
-        raise ValueError(f"{run_dir}: unexpected networks {sorted(restored)}")
     for net, variables in restored.items():
         params = variables["params"]
-        if sorted(params) != list(NETS[net]):
+        if len(params) < 2 or not any(layer_names(params, kind)
+                                      for kind in LAYER_KINDS):
             raise ValueError(f"{run_dir}: unexpected {net} layers "
                              f"{sorted(params)}")
         for layer, leaves in params.items():

@@ -307,3 +307,77 @@ def test_ddpg_update_on_card_matches_cpu():
         for p_cpu, p_card in zip(m_cpu.parameters(), m_card.parameters()):
             gap = (p_card.detach().cpu() - p_cpu.detach()).abs().max()
             assert float(gap) <= 1e-4 * float(p_cpu.detach().abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the planner's conditional form, the custom DQN and the tabular fold
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_conditional_st_on_card_launches_the_kernel_twice():
+    """``batched_conditional_st`` on the card (kernel) against the CPU
+    (dense twin) on a narrowed grid: exactly 2 kernel launches per call,
+    takeover flags agree on >= 97% of 128 states."""
+    _need_card()
+    from rl_mpc_lanemerging_torch._device import pin_fp32_matmul
+    from rl_mpc_lanemerging_torch.planner import mpc
+    pin_fp32_matmul()
+    cfg = CFG.replace(FUTURE_S=15.0)
+    states = sensed_states(2, 128, "cpu")
+    proposed = states.ego_speed + torch.as_tensor(
+        np.random.default_rng(2).uniform(-3, 6, 128), dtype=torch.float32)
+    card = type(states)(*(x.cuda() for x in states))
+    before = st_kernel.launches
+    speed_k, take_k = mpc.batched_conditional_st(card, proposed.cuda(), cfg)
+    assert st_kernel.launches == before + 2
+    speed_d, take_d = mpc.batched_conditional_st(states, proposed, cfg)
+    assert st_kernel.launches == before + 2
+    same = take_k.cpu() == take_d
+    assert float(same.float().mean()) >= 0.97
+    assert 0.0 < float(take_d.float().mean()) < 1.0
+    assert torch.isfinite(speed_k).all()
+
+
+@pytest.mark.cuda
+def test_dqn_forward_on_card_matches_cpu():
+    """The converted dqn_custom_default1 net: identical greedy actions on
+    128 states, Q values (up to ~40 in size) within 1e-5 + 1e-5 |Q| (true
+    fp32 products on both sides; 256-term sums in another order)."""
+    _need_card()
+    from rl_mpc_lanemerging_torch._device import pin_fp32_matmul
+    from rl_mpc_lanemerging_torch.checkpoint import load_dqn
+    from rl_mpc_lanemerging_torch.rl.obs import state_vector
+    pin_fp32_matmul()
+    states = sensed_states(4, 128, "cpu")
+    obs = state_vector(states, CFG)
+    with torch.no_grad():
+        q_cpu = load_dqn("runs/dqn_custom_default1", "cpu",
+                         committed=True)(obs)
+        q_card = load_dqn("runs/dqn_custom_default1", "cuda",
+                          committed=True)(obs.cuda()).cpu()
+    torch.testing.assert_close(q_card, q_cpu, rtol=1e-5, atol=1e-5)
+    assert torch.equal(q_card.argmax(-1), q_cpu.argmax(-1))
+
+
+@pytest.mark.cuda
+def test_tabular_fold_on_card_matches_cpu():
+    """The fold of 8 random episodes of 60 steps: Q and visits on the card
+    within 1e-6 of the CPU's."""
+    _need_card()
+    from rl_mpc_lanemerging_torch.rl import tabular
+    rng = np.random.default_rng(5)
+    states6 = [torch.as_tensor(rng.integers(0, 2, (8, 60)))
+               for _ in range(6)]
+    actions = torch.as_tensor(rng.integers(0, 5, (8, 60)))
+    rewards = torch.as_tensor(rng.normal(0, 2, (8, 60)), dtype=torch.float32)
+    valid = torch.as_tensor(rng.uniform(size=(8, 60)) < 0.9)
+    out = []
+    for dev in ("cpu", "cuda"):
+        q = tabular.initialize_q(CFG, device=dev)
+        visits = tabular.initialize_q(CFG, device=dev)
+        tabular.fold_episodes(q, visits, [s.to(dev) for s in states6],
+                              actions.to(dev), rewards.to(dev),
+                              valid.to(dev), 0.9, 0.1)
+        out.append((q.cpu(), visits.cpu()))
+    torch.testing.assert_close(out[1][0], out[0][0], rtol=0, atol=1e-6)
+    assert torch.equal(out[1][1], out[0][1])

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no module of ``rl_mpc_lanemerging_torch``
-nor ``chip_smoke.py`` imports JAX, Flax, optax, orbax or the JAX package.
+"""The PyTorch port stands alone: no module of ``rl_mpc_lanemerging_torch``,
+nor ``chip_smoke.py``, nor the port's scripts (``scripts/*_torch.py``)
+imports JAX, Flax, optax, orbax or the JAX package.
 Each file is parsed, not imported, so that an import inside a function
 counts too."""
 
@@ -14,7 +15,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
 
 
 def _sources():
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(REPO, "scripts", f) for f in
+        ("train_custom_dqn_torch.py", "train_tabular_torch.py")]
     for root, dirs, files in os.walk(os.path.join(REPO,
                                                   "rl_mpc_lanemerging_torch")):
         dirs[:] = sorted(d for d in dirs if d != "__pycache__")

@@ -162,7 +162,7 @@ def test_episode_round_matches_jax():
     assert t.ticks.min() > 0
 
 
-def test_cli_runs_only_the_st_task(tmp_path, monkeypatch):
+def test_cli_dispatches_every_task(tmp_path, monkeypatch):
     """Every TASK of the CLI dispatches, on the card unless asked otherwise:
     the runners are stubbed here (the ST task runs in
     ``test_cli_runs_the_st_task_on_the_cpu``, the actor and arbiter tasks in
