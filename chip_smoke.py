@@ -9,10 +9,12 @@ evaluation (st_default) with its crash capture, the combined RL+MPC arbiter
 with its trained 20-256-256-1 actor (combined_default_1), the training path
 (the batched merge env, the replay and the DDPG and Rainbow trainers on
 train_default_1 and train_dqn_default_1), crash replay, the planner's
-corridor and conditional forms, the custom DQN, the tabular Q path and the
-Gym adapter, and holds every CUDA kernel of those paths against its plain
-PyTorch version.  Depth is cut where noted (512 grids in phases 3, 4 and
-9; no whole learning round in phase 16).  Phases, in order; any failure
+corridor and conditional forms, the custom DQN, the tabular Q path, the
+Gym adapter and the scenario mesh (sharded evaluation, data-parallel and
+tensor-parallel training over ranks that share the card), and holds every
+CUDA kernel of those paths against its plain PyTorch version.  Depth is
+cut where noted (512 grids in phases 3, 4 and 9; no whole learning round
+in phase 16; phase 26's (b), (c) and (d)).  Phases, in order; any failure
 exits non-zero:
 
 1. device: requires CUDA; prints the card's name and power limit;
@@ -123,7 +125,34 @@ exits non-zero:
 25. the three Gym envs, 50 steps each on the card and on the CPU from the
     same seed: identical flags, observations within 1e-4; the IDs'
     registration (False without gymnasium or gym); K1 launched 0 times in
-    phases 23-25.
+    phases 23-25;
+26. the scenario mesh on one card (``parallel/``), each part timed:
+    (a) one round of ``tasks.evaluate_st`` on st_default at B=128 as 2
+    ``gloo`` ranks x 64 scenarios sharing the card, spawned after phase 2
+    built K1: every per-episode column equal to phase 6's one-process round
+    (the wall-time columns aside), K1's launches summed over the ranks =
+    the control ticks they ran, each rank's s per tick beside phase 6's;
+    (b) the CLI (``python -m rl_mpc_lanemerging_torch.main``) with
+    ``RANK=0 WORLD_SIZE=1`` on st_default at its own widths: the NCCL
+    process group comes up, one CSV row whose crash and merge rates equal
+    those of phase 6's first 8 episodes, the same scenarios (8 of 128
+    scenarios, a depth cut);
+    (c) data-parallel DDPG on train_default_1 at 32 scenarios per rank (a
+    depth cut of its 128): fill rounds with no update until the ranks start
+    learning together, then 3 learning ticks of 64 updates: both ranks'
+    actor and critic bit-identical, their env observations different, the
+    two ``all_reduce``s of an update timed, and 5 updates on 2 fixed
+    batches (one per rank) against one process that averages the same two
+    gradients by hand: relative gap <= 1e-6; (d) the custom DQN the same
+    (one 110-tick round of 16 grad steps, then 5 steps on fixed batches);
+    (e) the critic of ddpg_default1_extended split by ``mlp_tp_rules`` over
+    a 2-rank model axis against the whole critic on phase 3's 128 sensed
+    states at the trained actor's actions: relative gap <= 1e-5 of the
+    largest |Q|, the placements the rules predict; (f) one round of
+    combined_default_2 at B=128 through the newly converted
+    ddpg_default2_extended: at most 1 crash and at least 127 merges, 2 K1
+    launches per tick, |jerk| and time to merge beside run_data.csv lines
+    92 and 241.  A rank that fails fails the phase.
 
 Every phase prints its seconds, and the script its total.
 Prints the ``kernels`` JSON line before the last line, and as the last line
@@ -133,6 +162,7 @@ Prints the ``kernels`` JSON line before the last line, and as the last line
 from __future__ import annotations
 
 import copy
+import csv
 import json
 import logging
 import os
@@ -193,6 +223,24 @@ LAUNCHES_PER_RUN = 20
 SNAPSHOTS = 4            # of the 128 worlds, SNAPSHOT_EVERY ticks apart
 SNAPSHOT_EVERY = 10
 FIRST_SNAPSHOT = 60      # ticks after the ego joins
+# phase 26: the scenario mesh, 2 gloo ranks sharing the one card
+MESH_RANKS = 2
+MESH_TRAIN_BATCH = 32    # (c), (d): scenarios per rank, a depth cut of
+                         # train_default_1's 128 (64 over both ranks)
+MESH_FILL_TICKS = 400    # (c): at most, in rounds of 10 with no update
+                         # until the ranks start learning together: 100
+                         # ticks of warmup, then <= 32 valid frames per tick
+                         # (on the CPU: after ~280 ticks, since the episodes
+                         # all time out at once and warm up again)
+MESH_LEARN_TICKS = 3     # (c): learning ticks, UPDATES_PER_TICK each
+MESH_DQN_TICKS = 110     # (d): one round; the replay passes BATCH_SIZE
+MESH_DQN_GRAD_STEPS = 16
+MESH_DP_UPDATES = 5      # (c), (d): steps on fixed batches vs by hand
+COMBINED_2_CONFIG = "configs/combined_default_2.json"   # (f)
+# (b): st_default at its own widths; the one depth cut is the scenario
+# count, 8 episodes in one round (scenarios 0-7 of phase 6's 128)
+NCCL_SETTINGS = dict(BATCH_SCENARIOS=8, NUM_EPISODES=8,
+                     LOG_DIR="chip_smoke_nccl")
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -1580,6 +1628,379 @@ def dqn_tabular_gym_phases(dev, states) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the scenario mesh on one card
+# ---------------------------------------------------------------------------
+
+def _same_across(dicts) -> float:
+    """Largest |difference| between the first state_dict and the others
+    (0.0 when bit-identical)."""
+    return max(float((d[k].float() - dicts[0][k].float()).abs().max())
+               for d in dicts[1:] for k in dicts[0])
+
+
+def _averaged_step(opt, losses) -> None:
+    """An optimiser step on the mean of the gradients of ``losses``, taken
+    one by one and averaged by hand."""
+    params = opt.param_groups[0]["params"]
+    grads = [torch.autograd.grad(loss, params) for loss in losses]
+    for p, *gs in zip(params, *grads):
+        p.grad = sum(gs) / len(gs)
+    opt.step()
+
+
+def _hand_ddpg_update(actor, critic, t_actor, t_critic, a_opt, c_opt,
+                      batches) -> None:
+    """The DDPG update of the JAX package (ddpg.py:97-140) in one process,
+    the gradients of the ranks' batches averaged by hand."""
+    from rl_mpc_lanemerging_torch.agents import ddpg
+
+    def critic_loss(b):
+        with torch.no_grad():
+            q_next = t_critic(b["next_obs"], t_actor(b["next_obs"]))
+            target = b["reward"] + ddpg.DDPG_DISCOUNT * torch.where(
+                b["terminal"], 0.0, q_next)
+        return torch.mean((critic(b["obs"], b["action"][:, None])
+                           - target) ** 2)
+
+    _averaged_step(c_opt, [critic_loss(b) for b in batches])
+    _averaged_step(a_opt, [-torch.mean(critic(b["obs"], actor(b["obs"])))
+                           for b in batches])
+    ddpg._polyak((t_actor, t_critic), (actor, critic))
+
+
+def _hand_dqn_step(net, target, opt, batches, cfg) -> None:
+    """The custom DQN's grad step (dqn.py:107-124) in one process, the
+    gradients of the ranks' batches averaged by hand."""
+    from rl_mpc_lanemerging_torch.agents import dqn
+
+    def loss(b):
+        targets = dqn._targets(net, target, b, cfg)
+        qa = net(b["obs"]).gather(1, b["action"][:, None])[:, 0]
+        return torch.nn.functional.huber_loss(qa, targets, delta=1.0)
+
+    _averaged_step(opt, [loss(b) for b in batches])
+
+
+def _copies(modules, opts):
+    """Deep copies of modules and of their Adam optimisers' state."""
+    from rl_mpc_lanemerging_torch.agents.ddpg import _adam
+    mods = [copy.deepcopy(m) for m in modules]
+    new = []
+    for m, opt in zip(mods, opts):
+        o = _adam(m, opt.param_groups[0]["lr"])
+        o.load_state_dict(copy.deepcopy(opt.state_dict()))
+        new.append(o)
+    return mods, new
+
+
+def _dp_parity(mesh, modules, opts, batch, step, hand) -> float:
+    """MESH_DP_UPDATES data-parallel steps, rank r always on its own
+    ``batch``, against one process that averages the ranks' gradients by
+    hand from the same start; the largest relative parameter gap on rank 0
+    (None on the others)."""
+    from rl_mpc_lanemerging_torch.parallel import sharded
+    dev = next(modules[0].parameters()).device
+    batches = sharded.gather_objects(batch, mesh)
+    ref = _copies(modules, opts) if batches is not None else None
+    for _ in range(MESH_DP_UPDATES):
+        step(batch)
+    if batches is None:
+        return None
+    batches = [{k: v.to(dev) for k, v in b.items()} for b in batches]
+    for _ in range(MESH_DP_UPDATES):
+        hand(*ref, batches)
+    return _param_gap([p for m in modules for p in m.parameters()],
+                      [p.cpu() for m in ref[0] for p in m.parameters()])
+
+
+def _allreduce_ms(grads, group, runs: int = 50) -> float:
+    """Host ms of one ``average_gradients`` of ``grads`` (synchronised)."""
+    from rl_mpc_lanemerging_torch.parallel import sharded
+    sharded.average_gradients(grads, group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        sharded.average_gradients(grads, group)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / runs * 1e3
+
+
+def mesh_rank(device_type, st_cfg, train_cfg, tp_obs, tp_action) -> dict:
+    """One rank of phase 26 (a), (c), (d) and (e), on the card over
+    ``gloo`` (``device_type`` "cpu" rehearses it on the CPU); what rank 0
+    returns carries the comparisons."""
+    from rl_mpc_lanemerging_torch import checkpoint, convert, tasks
+    from rl_mpc_lanemerging_torch.agents import ddpg, dqn
+    from rl_mpc_lanemerging_torch.models.ddpg import DDPGCritic
+    from rl_mpc_lanemerging_torch.ops import st_kernel
+    from rl_mpc_lanemerging_torch.parallel import sharded, tp
+    from rl_mpc_lanemerging_torch.parallel.mesh import make_mesh
+    from rl_mpc_lanemerging_torch.planner import mpc
+    from rl_mpc_lanemerging_torch.rl import replay as rb
+
+    dev = torch.device("cpu") if device_type == "cpu" \
+        else torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(device_type)
+    group, rank, _ = sharded.axis_group(mesh)
+    out = {"rank": rank, "device": str(dev)}
+
+    # (a) the ST round, this rank's 64 scenarios
+    t0 = time.perf_counter()
+    controller = mpc.make_batched_controller(st_cfg)
+    ticks = 0
+
+    def counted(state):
+        nonlocal ticks
+        ticks += 1
+        return controller(state)
+
+    real = mpc.make_batched_controller
+    mpc.make_batched_controller = lambda c: counted
+    try:
+        st_kernel.launches = 0
+        t_round = time.perf_counter()
+        agg = tasks.evaluate_st(st_cfg, device=dev, verbose=False)
+        seconds = time.perf_counter() - t_round
+        launches = st_kernel.launches
+    finally:
+        mpc.make_batched_controller = real
+    out["a"] = {"columns": None if agg is None else dict(agg.columns),
+                "ticks": ticks, "launches": launches, "seconds": seconds,
+                "s_per_tick": seconds / max(ticks, 1),
+                "part_s": time.perf_counter() - t0}
+
+    # (c) data-parallel DDPG: a fill round, then learning ticks
+    t0 = time.perf_counter()
+    st_kernel.launches = 0
+    cfg = train_cfg.replace(BATCH_SCENARIOS=MESH_TRAIN_BATCH)
+    state, round_fn = ddpg.make_sharded_train(
+        cfg, mesh, seed=26, lr=cfg.LEARNING_RATE, env_ticks=10,
+        updates_per_tick=0)
+    fill_ticks = 0
+    while not state.learning and fill_ticks < MESH_FILL_TICKS:
+        state = round_fn(state)         # the ranks agree on ``learning``
+        fill_ticks += 10
+    filled = int(state.replay.size)
+    state = round_fn(state, env_ticks=MESH_LEARN_TICKS,
+                     updates_per_tick=UPDATES_PER_TICK)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    actors = sharded.gather_state_dicts(state.actor, mesh)
+    critics = sharded.gather_state_dicts(state.critic, mesh)
+    obs = sharded.gather_objects(state.env.obs, mesh)
+    c_grads = [p.grad.clone() for p in state.critic.parameters()]
+    a_grads = [p.grad.clone() for p in state.actor.parameters()]
+    allreduce_ms = (_allreduce_ms(c_grads, group)
+                    + _allreduce_ms(a_grads, group))
+    nets = (state.actor, state.critic, state.target_actor,
+            state.target_critic)
+    opts = (state.actor_opt, state.critic_opt)
+    _, fixed = rb.sample(state.replay, ddpg.DDPG_BATCH,
+                         generator=torch.Generator(dev).manual_seed(rank))
+    update_ms = wall_ms(lambda: ddpg._update(*nets, *opts, fixed, group))
+    gap = _dp_parity(
+        mesh, nets, opts, fixed,
+        lambda b: ddpg._update(*nets, *opts, b, group),
+        lambda mods, o, bs: _hand_ddpg_update(*mods, o[0], o[1], bs))
+    out["c"] = {"fill_ticks": fill_ticks, "replay_after_fill": filled,
+                "updates": state.updates,
+                "frames": int(state.frames), "round_s": round_s,
+                "ms_per_update": update_ms, "allreduce_ms_per_update":
+                allreduce_ms, "k1_launches": st_kernel.launches,
+                "params_gap_across_ranks": None if actors is None else
+                max(_same_across(actors), _same_across(critics)),
+                "obs_differ": None if obs is None else
+                not torch.equal(obs[0], obs[1]),
+                "dp_vs_hand_gap": gap,
+                "part_s": time.perf_counter() - t0}
+
+    # (d) data-parallel custom DQN
+    t0 = time.perf_counter()
+    dstate, dround = dqn.make_sharded_train(
+        cfg, mesh, seed=26, env_ticks=MESH_DQN_TICKS,
+        grad_steps=MESH_DQN_GRAD_STEPS)
+    dstate = dround(dstate)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    nets_d = sharded.gather_state_dicts(dstate.net, mesh)
+    obs = sharded.gather_objects(dstate.env.obs, mesh)
+    _, fixed = rb.sample(dstate.replay, cfg.BATCH_SIZE,
+                         generator=torch.Generator(dev).manual_seed(rank))
+    gap = _dp_parity(
+        mesh, (dstate.net, dstate.target_net), (dstate.opt,), fixed,
+        lambda b: dqn._grad_step(dstate.net, dstate.target_net, dstate.opt,
+                                 b, cfg, group),
+        lambda mods, o, bs: _hand_dqn_step(mods[0], mods[1], o[0], bs, cfg))
+    out["d"] = {"grad_steps": dstate.grad_steps, "round_s": round_s,
+                "replay_size": int(dstate.replay.size),
+                "k1_launches": st_kernel.launches,
+                "params_gap_across_ranks": None if nets_d is None else
+                _same_across(nets_d),
+                "obs_differ": None if obs is None else
+                not torch.equal(obs[0], obs[1]),
+                "dp_vs_hand_gap": gap, "part_s": time.perf_counter() - t0}
+
+    # (e) the trained critic split over a 2-rank model axis
+    t0 = time.perf_counter()
+    tp_mesh = make_mesh(device_type, (1, 2), ("scenario", "model"))
+    tree = checkpoint.load_params(TRAINED_DDPG, committed=True)["critic"]
+    whole, split = DDPGCritic().to(dev), DDPGCritic().to(dev)
+    for m in (whole, split):
+        m.load_state_dict(convert.ddpg_critic_from_numpy(tree))
+    rules = tp.mlp_tp_rules()
+    want = {k: str(v) for k, v in tp.param_path_specs(split, rules).items()}
+    tp.shard_params(split, tp_mesh, rules)
+    got = {n: [str(p) for p in getattr(q, "placements", ())]
+           for n, q in split.named_parameters()}
+    x = torch.as_tensor(tp_obs, device=dev)
+    a = torch.as_tensor(tp_action, device=dev)
+    with torch.no_grad():
+        q_split, q_whole = split(x, a), whole(x, a)
+    torch.cuda.synchronize()
+    out["e"] = {"rel_gap": float((q_split - q_whole).abs().max())
+                / float(q_whole.abs().max()),
+                "abs_gap": float((q_split - q_whole).abs().max()),
+                "q_abs_max": float(q_whole.abs().max()),
+                "placements_as_rules": all(
+                    g == [w] or (w == "R" and not g)
+                    for (n, g), w in zip(got.items(), want.values())),
+                "placements": got, "part_s": time.perf_counter() - t0}
+    return out
+
+
+def _run_data_row(line: int) -> dict:
+    """Line ``line`` (1-based, the header is line 1) of run_data.csv."""
+    with open("run_data.csv", newline="") as fh:
+        rows = list(csv.reader(fh))
+    return dict(zip(rows[0], rows[line - 1]))
+
+
+def mesh_phases(dev, main_cfg, single, states, st_kernel, st_dp) -> dict:
+    """Phase 26: the scenario mesh on one card.  ``single`` is phase 6's
+    one-process round (columns, s per tick) of ``main_cfg``; ``states``
+    phase 3's 128 sensed states."""
+    from rl_mpc_lanemerging_torch.checkpoint import load_actor
+    from rl_mpc_lanemerging_torch.config import Settings
+    from rl_mpc_lanemerging_torch.parallel import sharded
+    from rl_mpc_lanemerging_torch.rl.obs import state_vector
+
+    t_phase = phase("26 the scenario mesh on one card: (a) sharded ST, "
+                    "(c) DP DDPG, (d) DP DQN, (e) TP critic over 2 gloo "
+                    "ranks; (b) NCCL at world size 1; (f) combined_default_2")
+    out = {}
+    train_cfg = Settings.load_from_file(TRAIN_CONFIG)
+    actor = load_actor(TRAINED_DDPG, dev, train_cfg.MINIMUM_NEGATIVE_JERK,
+                       train_cfg.MAXIMUM_POSITIVE_JERK, committed=True)
+    with torch.no_grad():
+        tp_obs = state_vector(states, train_cfg)
+        tp_action = actor(tp_obs)
+    t0 = time.perf_counter()
+    ranks = sharded.spawn(mesh_rank, MESH_RANKS, args=(
+        dev.type, main_cfg, train_cfg, tp_obs.cpu().numpy(),
+        tp_action.cpu().numpy()), backend="gloo", timeout=900)
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    a_parts = [r["a"] for r in ranks]
+
+    # (a)
+    cols = r0["a"]["columns"]
+    diff = {k: int(np.sum(np.asarray(cols[k]) != np.asarray(v)))
+            for k, v in single["columns"].items()
+            if not k.startswith("clock_time")}
+    ticks = [p["ticks"] for p in a_parts]
+    launches = sum(p["launches"] for p in a_parts)
+    out["a"] = {"ticks_per_rank": ticks, "launches": launches,
+                "s_per_tick_per_rank": [p["s_per_tick"] for p in a_parts],
+                "single_process_s_per_tick": single["s_per_tick"],
+                "round_s_per_rank": [p["seconds"] for p in a_parts],
+                "episodes": len(cols["crashed"]),
+                "columns_differing": {k: n for k, n in diff.items() if n},
+                "part_s": max(p["part_s"] for p in a_parts)}
+    print("   (a) " + json.dumps(out["a"]), flush=True)
+    assert all(r["device"].startswith(dev.type) for r in ranks), ranks
+    assert out["a"]["episodes"] == BATCH and not out["a"]["columns_differing"]
+    assert launches == sum(ticks) > 0, (launches, ticks)
+
+    # (c), (d), (e)
+    for part in "cde":
+        rep = {k: v for k, v in r0[part].items() if k != "placements"}
+        rep["part_s_per_rank"] = [r[part]["part_s"] for r in ranks]
+        out[part] = rep
+        print(f"   ({part}) " + json.dumps(rep), flush=True)
+    c, d, e = out["c"], out["d"], out["e"]
+    assert [r["c"]["updates"] for r in ranks] == [
+        UPDATES_PER_TICK * MESH_LEARN_TICKS] * MESH_RANKS, ranks
+    assert c["params_gap_across_ranks"] == 0.0 and c["obs_differ"]
+    assert c["dp_vs_hand_gap"] <= 1e-6 and c["k1_launches"] == 0
+    assert len({r["d"]["grad_steps"] for r in ranks}) == 1
+    assert d["grad_steps"] == MESH_DQN_GRAD_STEPS
+    assert d["params_gap_across_ranks"] == 0.0 and d["obs_differ"]
+    assert d["dp_vs_hand_gap"] <= 1e-6 and d["k1_launches"] == 0
+    assert all(r["e"]["rel_gap"] <= 1e-5 and r["e"]["placements_as_rules"]
+               for r in ranks), [r["e"] for r in ranks]
+    print(f"   spawn of {MESH_RANKS} ranks, (a) and (c)-(e): "
+          f"{spawn_s:.2f} s", flush=True)
+
+    # (b) the CLI at world size 1 over NCCL: one ST round of 8 scenarios
+    t0 = time.perf_counter()
+    run_dir = os.path.join("runs_torch", "chip_smoke_nccl")
+    os.makedirs(run_dir, exist_ok=True)
+    config = os.path.join(run_dir, "st_nccl.json")
+    with open(config, "w") as fh:
+        json.dump(dict(json.load(open(CONFIG)), **NCCL_SETTINGS), fh)
+    rows = os.path.join(run_dir, "rows.csv")
+    if os.path.exists(rows):
+        os.remove(rows)
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="localhost", MASTER_PORT=str(sharded.free_port()))
+    proc = subprocess.run(
+        [sys.executable, "-m", "rl_mpc_lanemerging_torch.main", config,
+         "--csv", rows, "--device", dev.type], env=env, capture_output=True,
+        text=True, timeout=600)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    text = proc.stdout + proc.stderr
+    assert proc.returncode == 0, text[-3000:]
+    with open(rows, newline="") as fh:
+        csv_rows = list(csv.DictReader(fh))
+    first = {k: float(np.mean(single["columns"][k][:NCCL_SETTINGS[
+        "BATCH_SCENARIOS"]])) for k in ("crashed", "merged")}
+    out["b"] = {"returncode": proc.returncode, "csv_rows": len(csv_rows),
+                "nccl_group": f"backend {backend}, rank 0 of 1" in text,
+                "round_line": next((ln for ln in text.splitlines()
+                                    if ln.startswith("[")), None),
+                "row": {k: float(csv_rows[-1][k]) for k in (
+                    "crashed", "merged", "mean_abs_jerk", "time_to_merge")}
+                if csv_rows else None,
+                "phase_6_first_8": first,
+                "part_s": time.perf_counter() - t0}
+    print("   (b) " + json.dumps(out["b"]), flush=True)
+    assert out["b"]["nccl_group"] and len(csv_rows) == 1, text[-3000:]
+    assert all(out["b"]["row"][k] == v for k, v in first.items()), out["b"]
+
+    # (f) a newly converted actor through the arbiter
+    t0 = time.perf_counter()
+    rep = combined_round(COMBINED_2_CONFIG, BATCH, dev, st_kernel, st_dp)
+    rows = {line: _run_data_row(line) for line in (92, 241)}
+    rep["run_data"] = {line: {k: float(r[k]) for k in
+                              ("crashed", "merged", "mean_abs_jerk",
+                               "time_to_merge")}
+                       for line, r in rows.items()}
+    rep["part_s"] = time.perf_counter() - t0
+    out["f"] = rep
+    print(f"   (f) combined_default_2 through ddpg_default2_extended: crash "
+          f"{rep['crash']:.4f} merge {rep['merge']:.4f} |jerk| "
+          f"{rep['mean_abs_jerk']:.4f} time to merge "
+          f"{rep['time_to_merge_s']:.2f} s; run_data.csv "
+          + json.dumps(rep["run_data"]), flush=True)
+    assert rep["crash"] * BATCH <= 1 and rep["merge"] * BATCH >= BATCH - 1
+    out["seconds"] = time.perf_counter() - t_phase
+    print("   phase 26 parts (s): " + json.dumps(
+        {p: out[p]["part_s"] for p in "abcdef"}), flush=True)
+    done(t_phase)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1880,17 +2301,24 @@ def main() -> int:
     t_new = time.perf_counter()
     forms = forensics_phases(dev, states)
     rest = dqn_tabular_gym_phases(dev, states)
-    print(f"   phases 20-25: {time.perf_counter() - t_new:.2f} s; the script: "
-          f"{time.perf_counter() - t_script:.2f} s", flush=True)
+    print(f"   phases 20-25: {time.perf_counter() - t_new:.2f} s", flush=True)
+    mesh = mesh_phases(dev, main_cfg,
+                       {"columns": cols, "s_per_tick": s_per_tick}, states,
+                       st_kernel, st_dp)
+    print(f"   the script: {time.perf_counter() - t_script:.2f} s",
+          flush=True)
 
     kernels = [{
         "name": "st_wavefront",
         "route": "cuda",
         "source": "rl_mpc_lanemerging_torch/csrc/st_wavefront.cu",
         "replaces": "rl_mpc_lanemerging_tpu/ops/st_pallas.py:70",
-        "launches": launches + comb["main"]["launches"],
+        "launches": launches + comb["main"]["launches"]
+        + mesh["a"]["launches"] + mesh["f"]["launches"],
         "launches_st_path": launches,
         "launches_combined_path": comb["main"]["launches"],
+        "launches_sharded_st_path": mesh["a"]["launches"],
+        "launches_combined_default_2": mesh["f"]["launches"],
         "max_abs_err": max(max_abs_err, comb["rollout_max_abs_err"]),
         "ms": k_ms,
         "plain_ms": plain_ms,
@@ -1923,6 +2351,11 @@ def main() -> int:
         "launches_capture_replay_rollout_plans":
         forms["replay"]["k1_launches"],
         "launches_dqn_tabular_gym": rest["k1_launches"],
+        "sharded_st_control_ticks": sum(mesh["a"]["ticks_per_rank"]),
+        "sharded_st_seconds_per_tick_per_rank":
+        mesh["a"]["s_per_tick_per_rank"],
+        "launches_dp_training": mesh["c"]["k1_launches"]
+        + mesh["d"]["k1_launches"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -23,12 +23,16 @@ What the port does differently, and why:
   round, as the JAX trainer does.
 * Exploration noise and replay draws come from one ``torch.Generator`` on
   the env's device; the world's draws from its own source (``sim/rng.py``).
+* Data parallelism (``make_sharded_train``) is one process per rank, each
+  with its own envs, replay and parameter copy; ``group`` switches on the
+  gradient averaging of ``parallel/sharded.py`` where JAX ``pmean``s.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import os
 import time
 from typing import Optional
@@ -44,6 +48,7 @@ from ..config import Settings
 from ..envs.merge_env import EnvKind, MergeEnvState, env_reset, env_step
 from ..forensics import plot_rollouts
 from ..models.ddpg import DDPGActor, DDPGCritic
+from ..parallel.sharded import agree_min, average_gradients
 from ..rl import replay as rb
 from ..rl.obs import state_vector
 from ..rundir import RUNS_ROOT
@@ -51,8 +56,9 @@ from ..sim.world import WorldState
 from ..stats import StatsAggregator
 from .combined import _speed_from_jerk, combined_controller
 
-__all__ = ["DDPGTrainState", "make_train_state", "train_round", "train",
-           "actor_jerk", "actor_controller", "evaluate", "evaluate_combined"]
+__all__ = ["DDPGTrainState", "make_train_state", "train_round",
+           "make_sharded_train", "train", "actor_jerk", "actor_controller",
+           "evaluate", "evaluate_combined"]
 
 # Hyperparameters of the library preset, re-derived from the published
 # algorithm (the reference passes only lr_q/lr_pi through, ddpg.py:49-53).
@@ -143,11 +149,16 @@ def make_train_state(cfg: Settings, world: WorldState, world_rng, seed: int,
         ret_acc=zero(batch), ep_ret_sum=zero(), ep_ret_n=zero())
 
 
-def _step(opt: torch.optim.Optimizer, loss) -> None:
+def _step(opt: torch.optim.Optimizer, loss, group=None) -> None:
     """One optimiser step on the gradients of ``loss`` with respect to the
-    optimiser's own parameters, and no others."""
+    optimiser's own parameters, and no others; with a process ``group``,
+    on their mean over its ranks (JAX: ``pmean`` between ``grad`` and the
+    Adam step)."""
     params = opt.param_groups[0]["params"]
-    for p, g in zip(params, torch.autograd.grad(loss, params)):
+    grads = torch.autograd.grad(loss, params)
+    if group is not None:
+        grads = average_gradients(grads, group)
+    for p, g in zip(params, grads):
         p.grad = g
     opt.step()
 
@@ -162,10 +173,13 @@ def _polyak(targets, onlines) -> None:
 
 
 def _update(actor: DDPGActor, critic: DDPGCritic, target_actor: DDPGActor,
-            target_critic: DDPGCritic, actor_opt, critic_opt, batch) -> None:
+            target_critic: DDPGCritic, actor_opt, critic_opt, batch,
+            group=None) -> None:
     """One DDPG update, in place: the critic first, then the actor through
     the updated critic, then both targets.  Each stage is a profiler range
-    (``UPDATE_STAGES``)."""
+    (``UPDATE_STAGES``).  With a process ``group`` both gradients are
+    averaged over its ranks (JAX ``_update(axis_name=...)``, ddpg.py:121,
+    :131), which keeps every rank's copy identical."""
     act = batch["action"][:, None]
     with record_function("ddpg.target"), torch.no_grad():
         next_a = target_actor(batch["next_obs"])
@@ -175,12 +189,12 @@ def _update(actor: DDPGActor, critic: DDPGCritic, target_actor: DDPGActor,
 
     with record_function("ddpg.critic_step"):
         q = critic(batch["obs"], act)
-        _step(critic_opt, torch.mean((q - target) ** 2))
+        _step(critic_opt, torch.mean((q - target) ** 2), group)
 
     # gradients into the actor's parameters only
     with record_function("ddpg.actor_step"):
         a = actor(batch["obs"])
-        _step(actor_opt, -torch.mean(critic(batch["obs"], a)))
+        _step(actor_opt, -torch.mean(critic(batch["obs"], a)), group)
 
     with record_function("ddpg.polyak"), torch.no_grad():
         _polyak((target_actor, target_critic), (actor, critic))
@@ -188,13 +202,21 @@ def _update(actor: DDPGActor, critic: DDPGCritic, target_actor: DDPGActor,
 
 def train_round(state: DDPGTrainState, cfg: Settings, env_ticks: int = 64,
                 updates_per_tick: int = 64,
-                wait_before_start: float = 20.0) -> DDPGTrainState:
+                wait_before_start: float = 20.0,
+                group=None) -> DDPGTrainState:
     """``env_ticks`` batched env steps; ``updates_per_tick`` gradient
     updates per tick once the replay holds REPLAY_START transitions.  The
     reference library does one update per environment frame
     (update_frequency=1); with B scenarios stepping per tick,
     updates_per_tick ~ B/2 keeps the updates-per-frame ratio in the same
-    regime."""
+    regime.
+
+    With a process ``group`` (``make_sharded_train``) the updates average
+    their gradients over its ranks, and the ranks start learning together,
+    on the first tick after which every rank's replay holds REPLAY_START
+    transitions (the smallest replay decides, ``agree_min``): a rank that
+    stepped into an update's ``all_reduce`` alone would wait forever, so
+    every rank makes the same number of updates."""
     g = state.generator
     for _ in range(env_ticks):
         env = state.env
@@ -224,7 +246,9 @@ def train_round(state: DDPGTrainState, cfg: Settings, env_ticks: int = 64,
         state.ret_acc = torch.where(done, 0.0, ret_acc)
 
         if not state.learning:
-            state.learning = bool(state.replay.size >= REPLAY_START)
+            size = state.replay.size if group is None \
+                else agree_min(state.replay.size, group)
+            state.learning = bool(size >= REPLAY_START)
         if state.learning:
             for _ in range(updates_per_tick):
                 with record_function("ddpg.replay_draw"):
@@ -232,9 +256,37 @@ def train_round(state: DDPGTrainState, cfg: Settings, env_ticks: int = 64,
                                          generator=g)
                 _update(state.actor, state.critic, state.target_actor,
                         state.target_critic, state.actor_opt,
-                        state.critic_opt, batch)
+                        state.critic_opt, batch, group)
             state.updates += updates_per_tick
     return state
+
+
+def make_sharded_train(cfg: Settings, mesh, seed: int, lr: float,
+                       env_ticks: int = 200, updates_per_tick: int = 64,
+                       init_params: Optional[tuple] = None,
+                       wait_before_start: float = 20.0):
+    """Data-parallel trainer over the scenario mesh (JAX ddpg.py:216-254):
+    each rank owns a full local train state (envs, replay, generator and a
+    parameter copy) on the current card, or on the CPU when the mesh is a
+    CPU mesh; its updates average their gradients over the ranks, so the
+    copies stay identical (SURVEY §2.3; the reference trains strictly
+    single-process, dqn.py:272-354).  Rank i's worlds draw from SEED + i
+    and its generator from ``sharded.rank_seed(seed, i)``; rank 0's initial
+    parameters (``init_params``, or its own draw) are broadcast to every
+    rank.
+
+    Returns (this rank's state, round_fn), ``round_fn(state)`` advancing
+    the rank one train round."""
+    from ..parallel import sharded
+
+    state = sharded.data_parallel_state(
+        make_train_state, cfg, mesh, seed, ("actor", "critic"), lr=lr,
+        wait_before_start=wait_before_start, init_params=init_params)
+    round_fn = sharded.sharded_train_round(functools.partial(
+        train_round, cfg=cfg, env_ticks=env_ticks,
+        updates_per_tick=updates_per_tick,
+        wait_before_start=wait_before_start), mesh)
+    return state, round_fn
 
 
 def actor_jerk(actor: DDPGActor, cfg: Settings):
@@ -443,7 +495,8 @@ def _actor_on(cfg: Settings, actor: Optional[DDPGActor], dev) -> DDPGActor:
 
 
 def evaluate(cfg: Settings, actor: Optional[DDPGActor] = None,
-             device="cuda", verbose: bool = True) -> StatsAggregator:
+             device="cuda", verbose: bool = True
+             ) -> Optional[StatsAggregator]:
     """EVALUATE_DDPG (reference main.py:32-34 -> dqn.py:202-213): the
     actor of ``cfg.MODEL_NAME`` alone drives the ego; then the actor's
     virtual rollouts are drawn under ``runs_torch/<LOG_DIR>/plots``
@@ -454,14 +507,16 @@ def evaluate(cfg: Settings, actor: Optional[DDPGActor] = None,
     agg = tasks.evaluate_controller(cfg, actor_controller(actor, cfg),
                                     device=dev, verbose=verbose)
     tasks.report(agg, cfg, verbose)
-    plot_rollouts(actor_jerk(actor, cfg), cfg,
-                  os.path.join(RUNS_ROOT, cfg.LOG_DIR, "plots"), device=dev)
+    if agg is not None:                 # rank 0 of a run of several ranks
+        plot_rollouts(actor_jerk(actor, cfg), cfg,
+                      os.path.join(RUNS_ROOT, cfg.LOG_DIR, "plots"),
+                      device=dev)
     return agg
 
 
 def evaluate_combined(cfg: Settings, actor: Optional[DDPGActor] = None,
                       device="cuda", verbose: bool = True
-                      ) -> StatsAggregator:
+                      ) -> Optional[StatsAggregator]:
     """EVALUATE_COMBINED_* (reference main.py:35-40 -> dqn.py:228-241): the
     arbiter between the actor and the MPC drives the ego."""
     from .. import tasks

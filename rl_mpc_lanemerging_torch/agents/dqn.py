@@ -15,13 +15,15 @@ As in ``agents/ddpg.py``, the network and optimiser are torch objects
 updated in place, the scans are Python loops, and ``jax.lax.cond(replay.size
 >= BATCH_SIZE)`` is one host read per round.  Every draw comes from a draw
 source (``GeneratorDraws`` by default), so that a test can feed another
-implementation's draws.
+implementation's draws.  Data parallelism (``make_sharded_train``) is one
+process per rank, as in ``agents/ddpg.py``.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -32,6 +34,7 @@ from ..checkpoint import save_params
 from ..config import Settings
 from ..envs.merge_env import EnvKind, MergeEnvState, env_reset, env_step
 from ..models.mlp import DQNNet
+from ..parallel.sharded import agree_min
 from ..rl import replay as rb
 from ..rl.obs import state_vector
 from ..sim.world import WorldState
@@ -39,8 +42,8 @@ from .combined import _speed_from_jerk
 from .ddpg import _adam, _step
 
 __all__ = ["GeneratorDraws", "DQNTrainState", "make_train_state",
-           "epsilon_by_episode", "train_round", "refresh_target", "train",
-           "greedy_controller"]
+           "epsilon_by_episode", "train_round", "make_sharded_train",
+           "refresh_target", "train", "greedy_controller"]
 
 
 class GeneratorDraws:
@@ -137,24 +140,33 @@ def _targets(net: DQNNet, target_net: DQNNet, batch, cfg: Settings):
         return batch["reward"] + boot
 
 
-def _grad_step(net: DQNNet, target_net: DQNNet, opt, batch, cfg: Settings):
+def _grad_step(net: DQNNet, target_net: DQNNet, opt, batch, cfg: Settings,
+               group=None):
     """One learner step in place: mean Huber loss (delta 1) of Q(s, a)
-    against the targets, one Adam step.  Returns (loss, td error), the td
+    against the targets, one Adam step, on the gradients averaged over the
+    ranks of a process ``group`` when one is given (JAX ``pmean``,
+    dqn.py:118).  Returns (loss, td error), both this rank's own, the td
     error from the parameters before the step."""
     targets = _targets(net, target_net, batch, cfg)
     qa = net(batch["obs"]).gather(1, batch["action"][:, None])[:, 0]
     loss = torch.nn.functional.huber_loss(qa, targets, delta=1.0)
-    _step(opt, loss)
+    _step(opt, loss, group)
     return loss.detach(), qa.detach() - targets
 
 
 def train_round(state: DQNTrainState, cfg: Settings, env_ticks: int = 64,
-                grad_steps: int = 16, wait_before_start: float = 20.0
-                ) -> DQNTrainState:
+                grad_steps: int = 16, wait_before_start: float = 20.0,
+                group=None) -> DQNTrainState:
     """One round: ``env_ticks`` ticks of batched experience under the
     epsilon-greedy policy (epsilon from the episodes done at the round's
     start), then ``grad_steps`` prioritized updates once the replay holds
-    BATCH_SIZE transitions."""
+    BATCH_SIZE transitions.
+
+    With a process ``group`` (``make_sharded_train``) the grad steps
+    average their gradients over its ranks, and the ranks learn in a round
+    only when every rank's replay holds BATCH_SIZE transitions (the
+    smallest decides, ``agree_min``), so that all make the same steps; the
+    PER priorities stay each rank's own, as in JAX."""
     net, draws = state.net, state.draws
     n_act = len(cfg.JERK_VALUES_DQN)
     eps = epsilon_by_episode(state.episodes, cfg)
@@ -178,19 +190,41 @@ def train_round(state: DQNTrainState, cfg: Settings, env_ticks: int = 64,
         state.episodes = state.episodes + tr["done"].sum()
 
     state.loss_sum = torch.zeros_like(state.loss_sum)
-    if int(state.replay.size) >= cfg.BATCH_SIZE:
+    size = state.replay.size if group is None \
+        else agree_min(state.replay.size, group)
+    if int(size) >= cfg.BATCH_SIZE:
         p = state.replay.priority
         for _ in range(grad_steps):
             idx, batch = rb.sample(
                 state.replay, cfg.BATCH_SIZE,
                 u=draws.replay_uniform(cfg.BATCH_SIZE, p.dtype, p.device))
             loss, td = _grad_step(net, state.target_net, state.opt, batch,
-                                  cfg)
+                                  cfg, group)
             if cfg.USE_PRIORITIZED_ER:
                 rb.update_priorities(state.replay, idx, td, cfg)
             state.loss_sum = state.loss_sum + loss
         state.grad_steps += grad_steps
     return state
+
+
+def make_sharded_train(cfg: Settings, mesh, seed: int, env_ticks: int = 64,
+                       grad_steps: int = 16, wait_before_start: float = 20.0):
+    """Data-parallel DQN training over the scenario mesh (JAX
+    dqn.py:199-226; the scheme of ``agents.ddpg.make_sharded_train``): each
+    rank's envs and replay are its own, its grad steps average their
+    gradients over the ranks, and rank 0's initial network is broadcast, so
+    every copy stays identical.  Rank i's worlds draw from SEED + i and its
+    draws from ``sharded.rank_seed(seed, i)``.  Returns (this rank's state,
+    round_fn)."""
+    from ..parallel import sharded
+
+    state = sharded.data_parallel_state(
+        make_train_state, cfg, mesh, seed, ("net",),
+        wait_before_start=wait_before_start)
+    round_fn = sharded.sharded_train_round(functools.partial(
+        train_round, cfg=cfg, env_ticks=env_ticks, grad_steps=grad_steps,
+        wait_before_start=wait_before_start), mesh)
+    return state, round_fn
 
 
 def refresh_target(state: DQNTrainState) -> DQNTrainState:

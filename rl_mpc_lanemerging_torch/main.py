@@ -5,6 +5,13 @@ Port of ``rl_mpc_lanemerging_tpu/main.py`` (reference main.py:16-40,
 ``--device cpu`` is given, and writes a CSV row only to the file named by
 ``--csv``.  Quirks of the reference dispatcher are kept
 (EVALUATE_COMBINED_DQN loads the DDPG agent, main.py:35-37).
+
+Under ``torchrun --nproc_per_node=N -m rl_mpc_lanemerging_torch.main ...``
+the ranks join one process group (``parallel.sharded``) and the evaluation
+tasks split their scenario batch over them; rank 0 alone prints the stats,
+draws the plots and appends the ``--csv`` row.  The training tasks run in
+one process (data-parallel training is ``make_sharded_train`` in
+``agents/ddpg.py`` and ``agents/dqn.py``).
 """
 
 from __future__ import annotations
@@ -14,7 +21,12 @@ import itertools
 import logging
 from typing import Optional
 
+import torch.distributed as dist
+
 from .config import Settings
+from .parallel.sharded import maybe_initialize_distributed
+
+_TRAINING_TASKS = ("TRAIN_DQN", "RESUME_DQN", "TRAIN_DDPG", "RESUME_DDPG")
 
 
 def do_task(cfg: Settings, device: str = "cuda",
@@ -23,6 +35,11 @@ def do_task(cfg: Settings, device: str = "cuda",
     stage and ends with the evaluation whose row ``csv_path`` receives."""
     task = cfg.TASK
     from .rundir import setup_run_dir
+    if task in _TRAINING_TASKS and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        raise ValueError(f"TASK={task} runs in one process; data-parallel "
+                         f"training is make_sharded_train in agents/ddpg.py "
+                         f"and agents/dqn.py")
     if task == "ST":
         from . import tasks
         run = tasks.evaluate_st
@@ -54,7 +71,7 @@ def do_task(cfg: Settings, device: str = "cuda",
         raise ValueError(f"Unknown TASK: {task}")
     setup_run_dir(cfg, snapshot_src=False)
     agg = run(cfg, device=device)
-    if csv_path:
+    if csv_path and agg is not None:        # rank 0 alone holds the stats
         agg.add_csv_data(csv_path)
 
 
@@ -124,9 +141,17 @@ def main(argv=None) -> None:
     if args.batch is not None:
         cfg = cfg.replace(BATCH_SCENARIOS=args.batch)
     logging.basicConfig(level=cfg.LOG_LEVEL)
+    # joins the ranks of a torchrun launch (JAX main.py:121-126)
+    maybe_initialize_distributed(
+        None if args.device.startswith("cuda") else "gloo")
     run = {"st": do_grid_search_st, "combined": do_grid_search_combined,
            None: do_task}[args.grid_search]
-    run(cfg, device=args.device, csv_path=args.csv, num_frames=args.frames)
+    try:
+        run(cfg, device=args.device, csv_path=args.csv,
+            num_frames=args.frames)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

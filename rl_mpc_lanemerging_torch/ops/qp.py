@@ -12,8 +12,19 @@ and the position rows (the lead/trail corridor, inert unless bounds are
 given).  The operator is static: it and its ADMM
 normal-matrix inverse are built once per configuration on the host in
 numpy, then moved to the device once.  The batched solve is plain
-(B, m) x (m, n) products, which go to ``torch.matmul``; they must run in
+(m, n) x (n, B) products, which go to ``torch.matmul``; they must run in
 true fp32 (the controller turns TF32 off).
+
+The iterates are held transposed, one scenario per column, so that the
+batch is the products' last axis.  With the batch as the row axis
+((B, n) x (n, m)), cuBLAS picked another kernel, and so another order of
+each dot product's partial sums, at 32 rows than at 128 on an H100: a
+scenario's smoothed path then depended on how many scenarios shared its
+batch, and a batch split over ranks (``parallel/``) drifted from one
+process in the last bit, then chaotically.  In this layout a batch of 128
+gives the same bits whole as in shards of 64 or 32 on that card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 26); a single
+scenario does not (cuBLAS takes a matrix-vector kernel there).
 """
 
 from __future__ import annotations
@@ -99,14 +110,14 @@ _DEVICE_OPS: dict = {}
 
 
 def _device_operator(op: QPOperator, device, dtype):
-    """(A, A^T, solve^T, row_scale, a_row_sums) on the device, moved once
+    """(A, A^T, solve, row_scale, a_row_sums) on the device, moved once
     per (operator, device, dtype)."""
     key = (op.n, op.delta_t, op.rho, str(device), dtype)
     if key not in _DEVICE_OPS:
         def put(x):
             return torch.as_tensor(np.ascontiguousarray(x)).to(
                 device=device, dtype=dtype)
-        _DEVICE_OPS[key] = (put(op.a), put(op.a.T), put(op.solve.T),
+        _DEVICE_OPS[key] = (put(op.a), put(op.a.T), put(op.solve),
                             put(op.row_scale), put(op.a_row_sums))
     return _DEVICE_OPS[key]
 
@@ -211,7 +222,7 @@ def finer_fit_qp(coarse_seq, valid_len, start_speed, start_acceleration,
     lo = torch.cat([v_lo, a_lo, j_lo, s0, corridor(pos_lo, -_BIG)], dim=1)
     hi = torch.cat([v_hi, a_hi, j_hi, s0, corridor(pos_hi, _BIG)], dim=1)
 
-    a_mat, a_t, solve_t, scale, row_sums = _device_operator(
+    a_mat, a_t, solve, scale, row_sums = _device_operator(
         op, coarse_seq.device, dtype)
     lo = lo * scale
     hi = hi * scale
@@ -224,17 +235,18 @@ def finer_fit_qp(coarse_seq, valid_len, start_speed, start_acceleration,
     # products (bf16 on the TPU, TF32 on the GPU) make this ADMM converge
     # to garbage; the controller pins fp32 matmuls.
     shift_rows = row_sums[None, :] * s0                       # A @ (s0 * 1)
-    b_c = b - s0
-    lo_c = lo - shift_rows
-    hi_c = hi - shift_rows
+    # one scenario per column (module docstring)
+    b_c = (b - s0).T.contiguous()
+    lo_c = (lo - shift_rows).T.contiguous()
+    hi_c = (hi - shift_rows).T.contiguous()
 
     x = b_c
-    z = torch.minimum(torch.maximum(x @ a_t, lo_c), hi_c)
+    z = torch.minimum(torch.maximum(a_mat @ x, lo_c), hi_c)
     u = torch.zeros_like(z)
     for _ in range(iterations):
-        rhs = 2.0 * b_c + rho * ((z - u) @ a_mat)
-        x = rhs @ solve_t
-        ax = alpha * (x @ a_t) + one_m_alpha * z
+        rhs = 2.0 * b_c + rho * (a_t @ (z - u))
+        x = solve @ rhs
+        ax = alpha * (a_mat @ x) + one_m_alpha * z
         z = torch.minimum(torch.maximum(ax + u, lo_c), hi_c)
         u = u + ax - z
-    return x + s0, fine_len
+    return (x.T + s0).contiguous(), fine_len

@@ -396,6 +396,12 @@ def prepare_launch(obstacles, s_values, ego_speed, ego_accel, distances,
     ``visited``, when given, is a one-element int64 CUDA tensor to which
     every launch adds the (source, offset) pairs its sweep visited."""
     device = obstacles.device
+    inputs = (("s_values", s_values), ("ego_speed", ego_speed),
+              ("ego_accel", ego_accel), ("distances", distances))
+    for name, x in inputs:
+        if x.device != device:
+            raise ValueError(f"st_wavefront: {name} on {x.device}, "
+                             f"obstacles on {device}")
     if device.type != "cuda":
         raise ValueError(f"st_wavefront: unsupported device {device}")
     if obstacles.dim() != 3 or obstacles.dtype != torch.bool:
@@ -404,13 +410,8 @@ def prepare_launch(obstacles, s_values, ego_speed, ego_accel, distances,
     if batch < 1 or num_t < 2:
         raise ValueError("st_wavefront: bad grid shape "
                          f"{tuple(obstacles.shape)}")
-    for name, x, shape in (("s_values", s_values, (batch, num_s)),
-                           ("ego_speed", ego_speed, (batch,)),
-                           ("ego_accel", ego_accel, (batch,)),
-                           ("distances", distances, (batch, num_t, num_s))):
-        if x.device != device:
-            raise ValueError(f"st_wavefront: {name} on {x.device}, "
-                             f"obstacles on {device}")
+    for (name, x), shape in zip(inputs, ((batch, num_s), (batch,), (batch,),
+                                         (batch, num_t, num_s))):
         if tuple(x.shape) != shape:
             raise ValueError(f"st_wavefront: {name} has shape "
                              f"{tuple(x.shape)}, expected {shape}")
@@ -444,10 +445,14 @@ def prepare_launch(obstacles, s_values, ego_speed, ego_accel, distances,
 
     def launch(_alive=(obs, dist, s_val, v0, a0, visited)):
         global launches
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.st_wavefront_launch(
-            *pointers, batch, num_t, num_s, s_pad, d_pad, threads,
-            consts.ctypes.data, stream)
+        # the library raises the shared-memory limit on, and launches onto,
+        # the current device: make it the inputs' device (a rank that has
+        # not called set_device would otherwise launch against card 0)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = lib.st_wavefront_launch(
+                *pointers, batch, num_t, num_s, s_pad, d_pad, threads,
+                consts.ctypes.data, stream)
         if rc != 0:
             raise RuntimeError("st_wavefront: kernel launch failed with "
                                f"CUDA error {rc}")

@@ -9,9 +9,13 @@ advance its count, so it asks for the same draws again next tick.
 
 :class:`CounterRandom`, the default, is counter-based: each draw is a hash
 of (seed, scenario index, step, stream), so scenario i's stream does not
-depend on the batch size or on the device.  A test can plug in any object
-with the same two methods, for example one that replays another
-implementation's draws.
+depend on the batch size or on the device.  The scenario index is global:
+a source made with ``offset=k`` hashes ``k + i`` for row i of its batch, so
+the rank that holds scenarios k.. of a sharded batch draws exactly what
+rows k.. of the whole batch draw in one process (the JAX package splits
+its keys over the global batch before it shards them, tasks.py:44, :89).
+A test can plug in any object with the same two methods, for example one
+that replays another implementation's draws.
 """
 
 from __future__ import annotations
@@ -50,15 +54,17 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
 
 
 class CounterRandom:
-    """Counter-based draws keyed by (seed, scenario index, step, stream)."""
+    """Counter-based draws keyed by (seed, scenario index, step, stream);
+    row i of a batch is scenario ``offset + i``."""
 
-    def __init__(self, seed: int):
+    def __init__(self, seed: int, offset: int = 0):
         self.seed = int(seed) & _MASK32
+        self.offset = int(offset)
 
     def _bits(self, steps: torch.Tensor, stream: int) -> torch.Tensor:
         steps = steps.to(torch.int64)
-        scen = torch.arange(steps.shape[0], dtype=torch.int64,
-                            device=steps.device)
+        scen = torch.arange(self.offset, self.offset + steps.shape[0],
+                            dtype=torch.int64, device=steps.device)
         h = _mix32(torch.full_like(steps, self.seed) ^ stream)
         h = _mix32(h ^ (scen & _MASK32))
         h = _mix32(h ^ (steps & _MASK32))

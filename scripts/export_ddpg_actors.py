@@ -3,10 +3,13 @@ for the PyTorch port.
 
     python scripts/export_ddpg_actors.py [runs/<name> ...]
 
-With no arguments it converts the five DDPG runs that serve every
-``combined_*_1``, ``combined_*_1b``, ``cross_*_1`` and ``cross_*_1b``
-configuration, the Rainbow run ``runs/rainbow_default1_extended`` and the
-custom DQN run ``runs/dqn_custom_default1``.  For each run directory it
+With no arguments it converts the fifteen DDPG runs
+``runs/ddpg_{default,fast,low,medium,moderate}{1,2,3}_extended``, which serve
+every configuration that names a DDPG ``MODEL_NAME`` (``combined_*``,
+``cross_*``, ``ddpg_*``; the ``params`` of ``ddpg_medium2_extended`` were
+restored from a surviving artifact, ADVICE.md:3), the Rainbow run
+``runs/rainbow_default1_extended`` and the custom DQN run
+``runs/dqn_custom_default1``.  For each run directory it
 restores ``<run>/params`` with the JAX package's ``checkpoint.load_params``
 and writes every network in it (a DDPG run's ``actor`` and ``critic``, a
 Rainbow run's ``q_dist``, a custom DQN run's ``q``; any net whose layers
@@ -30,8 +33,9 @@ sys.path.insert(0, REPO)
 from rl_mpc_lanemerging_torch.checkpoint import (weights_path,  # noqa: E402
                                                  write_npz)
 from rl_mpc_lanemerging_torch.convert import layer_names  # noqa: E402
-DEFAULT_RUNS = tuple(f"runs/ddpg_{name}1_extended" for name in
-                     ("default", "fast", "low", "medium", "moderate")) \
+DEFAULT_RUNS = tuple(f"runs/ddpg_{name}{seed}_extended" for seed in (1, 2, 3)
+                     for name in ("default", "fast", "low", "medium",
+                                  "moderate")) \
     + ("runs/rainbow_default1_extended", "runs/dqn_custom_default1")
 LAYER_KINDS = ("Dense", "NoisyDense")
 

@@ -381,3 +381,55 @@ def test_tabular_fold_on_card_matches_cpu():
         out.append((q.cpu(), visits.cpu()))
     torch.testing.assert_close(out[1][0], out[0][0], rtol=0, atol=1e-6)
     assert torch.equal(out[1][1], out[0][1])
+
+
+# ---------------------------------------------------------------------------
+# the scenario mesh: two ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_qp_rows_do_not_depend_on_the_batch_size():
+    """The QP on the card at B=128 equals, bit for bit, the same scenarios
+    solved as two batches of 64 and four of 32 (one scenario per column of
+    the ADMM products): a sharded evaluation replays a one-process one."""
+    _need_card()
+    from rl_mpc_lanemerging_torch.ops import qp
+    rng = np.random.default_rng(5)
+    n, batch = CFG.fine_horizon, 128
+    coarse = np.cumsum(rng.uniform(0, 3, (batch, CFG.num_t)), axis=1) \
+        + rng.uniform(-150, 0, (batch, 1))
+    args = [torch.as_tensor(x, device="cuda") for x in (
+        coarse.astype(np.float32), np.full(batch, CFG.num_t, np.int32),
+        rng.uniform(0, 25, batch).astype(np.float32),
+        rng.uniform(-4, 4, batch).astype(np.float32))]
+    op = qp.build_operator(n, CFG.TICK_LENGTH)
+    kw = dict(coarse_delta_t=CFG.T_DISCRETIZATION, max_speed=CFG.MAX_SPEED,
+              pos_accel=CFG.MAX_POSITIVE_ACCELERATION,
+              neg_accel=CFG.MAX_NEGATIVE_ACCELERATION,
+              pos_jerk=CFG.MAXIMUM_POSITIVE_JERK,
+              neg_jerk=CFG.MINIMUM_NEGATIVE_JERK,
+              iterations=CFG.QP_ITERATIONS)
+    whole = qp.finer_fit_qp(*args, op, **kw)[0]
+    for parts in (2, 4):
+        size = batch // parts
+        split = torch.cat([qp.finer_fit_qp(*(a[i:i + size] for a in args),
+                                           op, **kw)[0]
+                           for i in range(0, batch, size)])
+        assert torch.equal(whole, split), parts
+
+
+@pytest.mark.cuda
+def test_mesh_collectives_on_cuda_tensors():
+    """``average_gradients``, ``agree_min`` and ``broadcast_modules`` on
+    CUDA tensors, 2 gloo ranks on the one card (its all_reduce and
+    broadcast take CUDA tensors; NCCL refuses two ranks on one GPU)."""
+    _need_card()
+    import _torch_ranks
+    from rl_mpc_lanemerging_torch.parallel import sharded
+    for out in sharded.spawn(_torch_ranks.card_collectives, 2,
+                             backend="gloo", timeout=300):
+        assert all(d.startswith("cuda") for d in out["devices"])
+        np.testing.assert_array_equal(out["avg"][0], np.full((3, 2), 1.5))
+        np.testing.assert_array_equal(out["avg"][1], np.arange(4.0) * 1.5)
+        assert out["min"] == 10
+        np.testing.assert_array_equal(out["weight"], np.zeros((2, 3)))

@@ -17,7 +17,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
 def _sources():
     paths = [os.path.join(REPO, "chip_smoke.py")] + [
         os.path.join(REPO, "scripts", f) for f in
-        ("train_custom_dqn_torch.py", "train_tabular_torch.py")]
+        ("train_custom_dqn_torch.py", "train_tabular_torch.py",
+         "multihost_worker_torch.py", "combined_crash_forensics_torch.py",
+         "eval_ddpg_torch.py")]
     for root, dirs, files in os.walk(os.path.join(REPO,
                                                   "rl_mpc_lanemerging_torch")):
         dirs[:] = sorted(d for d in dirs if d != "__pycache__")

@@ -28,7 +28,12 @@ from rl_mpc_lanemerging_tpu.rl import obs as jobs
 
 CFG = Settings()
 TCFG = TSettings()
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ACTORS = ("default", "fast", "low", "medium", "moderate")
+# the second and third seed of each family; ddpg_medium2_extended's params
+# were restored from a surviving artifact (ADVICE.md:3)
+LATER_RUNS = tuple(f"runs/ddpg_{name}{seed}_extended" for name in ACTORS
+                   for seed in (2, 3))
 
 
 def _states(seed, batch=24):
@@ -167,9 +172,7 @@ def test_converter_rejects_a_tree_that_is_not_three_dense_layers():
         convert.ddpg_actor_from_numpy(tree)
 
 
-@pytest.mark.parametrize("name", ACTORS)
-def test_committed_actor_equals_its_checkpoint(name):
-    run = f"runs/ddpg_{name}1_extended"
+def _actor_equals_its_checkpoint(run):
     want = load_params(run)["actor"]["params"]
     got = tcheckpoint.load_actor_tree(run, committed=True)["params"]
     assert sorted(got) == sorted(want)
@@ -187,9 +190,17 @@ def test_committed_actor_equals_its_checkpoint(name):
 
 
 @pytest.mark.parametrize("name", ACTORS)
-def test_committed_critic_equals_its_checkpoint(name):
+def test_committed_actor_equals_its_checkpoint(name):
+    _actor_equals_its_checkpoint(f"runs/ddpg_{name}1_extended")
+
+
+@pytest.mark.parametrize("run", LATER_RUNS)
+def test_later_actor_equals_its_checkpoint(run):
+    _actor_equals_its_checkpoint(run)
+
+
+def _critic_equals_its_checkpoint(run):
     """The critic beside each actor, as the DDPG trainer resumes it."""
-    run = f"runs/ddpg_{name}1_extended"
     want = load_params(run)["critic"]["params"]
     got = tcheckpoint.load_params(run, committed=True)["critic"]["params"]
     assert sorted(got) == sorted(want)
@@ -204,10 +215,35 @@ def test_committed_critic_equals_its_checkpoint(name):
     assert critic.layers["Dense_0"].weight.shape == (256, 21)
 
 
+@pytest.mark.parametrize("name", ACTORS)
+def test_committed_critic_equals_its_checkpoint(name):
+    _critic_equals_its_checkpoint(f"runs/ddpg_{name}1_extended")
+
+
+@pytest.mark.parametrize("run", LATER_RUNS)
+def test_later_critic_equals_its_checkpoint(run):
+    _critic_equals_its_checkpoint(run)
+
+
+def test_every_config_finds_its_network():
+    """Each of the configs that name a MODEL_NAME finds a committed
+    network (the DDPG actors of all three seeds, Rainbow, custom DQN)."""
+    import glob
+    import json
+    names = [json.load(open(p)).get("MODEL_NAME")
+             for p in sorted(glob.glob(os.path.join(REPO, "configs",
+                                                    "*.json")))]
+    names = [n for n in names if n]
+    assert len(names) == 93
+    missing = sorted({n for n in names if not os.path.exists(
+        os.path.join(REPO, tcheckpoint.params_path(n, committed=True)))})
+    assert not missing
+
+
 def test_missing_actor_names_the_export_script():
     with pytest.raises(FileNotFoundError,
                        match="scripts/export_ddpg_actors.py"):
-        tcheckpoint.load_actor("runs/ddpg_default3_extended", "cpu")
+        tcheckpoint.load_actor("runs/ddpg_default4_extended", "cpu")
     assert os.path.basename(tcheckpoint.weights_path(
         "runs/ddpg_low1_extended/")) == "ddpg_low1_extended.npz"
 

@@ -79,3 +79,17 @@ def test_qp_float32_matches_converged_qp():
         ref = scipy_reference(coarse[b], v0[b], a0[b])
         assert abs((x[b, 1] - x[b, 0]) - (ref[1] - ref[0])) < 2e-4
         np.testing.assert_allclose(x[b], ref, atol=5e-3)
+
+
+def test_a_scenario_path_does_not_depend_on_its_batch():
+    """The iterates hold one scenario per column, so that a batch split
+    over ranks gives each scenario the bits of the whole batch: 8
+    scenarios fitted together and as two halves of 4 agree exactly."""
+    coarse, valid, v0, a0 = _batch(3, batch=8)
+    whole, whole_len = _port_fit(coarse, valid, v0, a0, torch.float32)
+    for half in (slice(0, 4), slice(4, 8)):
+        part, part_len = _port_fit(coarse[half], valid[half], v0[half],
+                                   a0[half], torch.float32)
+        assert np.isfinite(part).all()
+        np.testing.assert_array_equal(part_len, whole_len[half])
+        np.testing.assert_array_equal(part, whole[half])

@@ -94,6 +94,20 @@ def test_wrapper_refuses_other_devices():
         st_kernel.st_wavefront(*meta, **KW)
 
 
+def test_launch_refuses_cpu_and_mixed_device_inputs():
+    """The launch path refuses CPU inputs, and inputs on two devices,
+    before it builds or launches anything."""
+    before = st_kernel.launches
+    with pytest.raises(ValueError, match="unsupported device cpu"):
+        st_kernel.prepare_launch(*_torch_inputs(), **KW)
+    obst, sv, v0, a0, dist = _torch_inputs()
+    with pytest.raises(ValueError,
+                       match="ego_speed on cpu, obstacles on meta"):
+        st_kernel.st_wavefront(obst.to("meta"), sv.to("meta"), v0,
+                               a0.to("meta"), dist.to("meta"), **KW)
+    assert st_kernel.launches == before
+
+
 def test_penalty_fold_marks_obstacles_and_padding():
     obst, _, _, _, dist = _torch_inputs()
     pen = st_kernel.fold_penalty(obst, dist, TW, 320)

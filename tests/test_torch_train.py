@@ -18,6 +18,7 @@ import torch
 
 from _torch_parity import (JaxReplay, jax_state_to_torch, jax_world_to_torch,
                            random_states)
+from _torch_ranks import torch_ddpg as _torch_ddpg
 from rl_mpc_lanemerging_torch import checkpoint as tcheckpoint
 from rl_mpc_lanemerging_torch import convert, main as tmain
 from rl_mpc_lanemerging_torch import tasks as ttasks
@@ -93,18 +94,6 @@ def _ddpg_params(seed):
     cp = _f64(critic.init(k2, jnp.zeros((1, CFG.obs_dim)),
                           jnp.zeros((1, 1))))
     return ap, cp
-
-
-def _torch_ddpg(ap, cp, lr):
-    actor = DDPGActor(CFG.obs_dim, CFG.MINIMUM_NEGATIVE_JERK,
-                      CFG.MAXIMUM_POSITIVE_JERK)
-    critic = DDPGCritic(CFG.obs_dim)
-    actor.load_state_dict(convert.ddpg_actor_from_numpy(ap))
-    critic.load_state_dict(convert.ddpg_critic_from_numpy(cp))
-    actor, critic = actor.double(), critic.double()
-    return (actor, critic, DDPGActor(CFG.obs_dim).double(),
-            DDPGCritic(CFG.obs_dim).double(), tddpg._adam(actor, lr),
-            tddpg._adam(critic, lr))
 
 
 def _ddpg_batch(rng, n=100):
