@@ -10,11 +10,13 @@ with its trained 20-256-256-1 actor (combined_default_1), the training path
 (the batched merge env, the replay and the DDPG and Rainbow trainers on
 train_default_1 and train_dqn_default_1), crash replay, the planner's
 corridor and conditional forms, the custom DQN, the tabular Q path, the
-Gym adapter and the scenario mesh (sharded evaluation, data-parallel and
-tensor-parallel training over ranks that share the card), and holds every
-CUDA kernel of those paths against its plain PyTorch version.  Depth is
+Gym adapter, the scenario mesh (sharded evaluation, data-parallel and
+tensor-parallel training over ranks that share the card) and the arbiter's
+gate b and hysteresis carry, and holds every CUDA kernel of those paths
+against its plain PyTorch version (on st_default, the arbiter's rollout
+test states and st_fast).  Depth is
 cut where noted (512 grids in phases 3, 4 and 9; no whole learning round
-in phase 16; phase 26's (b), (c) and (d)).  Phases, in order; any failure
+in phase 16; phase 26's (b), (c), (d) and (f)).  Phases, in order; any failure
 exits non-zero:
 
 1. device: requires CUDA; prints the card's name and power limit;
@@ -149,10 +151,25 @@ exits non-zero:
     a 2-rank model axis against the whole critic on phase 3's 128 sensed
     states at the trained actor's actions: relative gap <= 1e-5 of the
     largest |Q|, the placements the rules predict; (f) one round of
-    combined_default_2 at B=128 through the newly converted
-    ddpg_default2_extended: at most 1 crash and at least 127 merges, 2 K1
+    combined_default_2 at B=32 (a depth cut of 128) through
+    ddpg_default2_extended: at most 1 crash and at least 31 merges, 2 K1
     launches per tick, |jerk| and time to merge beside run_data.csv lines
-    92 and 241.  A rank that fails fails the phase.
+    92 and 241.  A rank that fails fails the phase;
+27. gate b (LIMIT_DQN_SPEED) and the hysteresis carry
+    (REMEMBER_LAST_CHOICE_FOR_SWITCHING_COMBINED) on the card:
+    combined_default_1b (combined_default_1 with gate d, inside which the
+    carry acts) with both on.  128 worlds driven by that arbiter on the
+    card for 24 ticks after the ego joins; DESIRED_SPEED then comes down
+    from 30 m/s (the RL's speed limit, where gate b cannot fire) to the
+    median of the RL's selected speeds on those states; then 3 ticks of
+    ``arbitrate`` on the card (kernel) and on the CPU (dense twin), each
+    side carrying its own previous choice: takeover flags agree on >= 97%,
+    every disagreement printed with its gates, gate b fired and a takeover
+    carried at least once; then one round at 32 scenarios: crash 0, exactly
+    2 kernel launches per control tick;
+28. kernel vs plain version on 512 grids of st_fast (OTHER_CAR_SPEED 15,
+    the steepest obstacle bands), taken as in phase 3: >= 99.9% identical
+    paths, every first-step difference <= 0.101 m.
 
 Every phase prints its seconds, and the script its total.
 Prints the ``kernels`` JSON line before the last line, and as the last line
@@ -237,6 +254,19 @@ MESH_DQN_TICKS = 110     # (d): one round; the replay passes BATCH_SIZE
 MESH_DQN_GRAD_STEPS = 16
 MESH_DP_UPDATES = 5      # (c), (d): steps on fixed batches vs by hand
 COMBINED_2_CONFIG = "configs/combined_default_2.json"   # (f)
+COMBINED_2_BATCH = 32    # (f): a depth cut of 128; phase 11 runs the
+                         # combined path at B=128
+# phase 27: gate b and the hysteresis carry.  The carry acts only inside
+# gate d, so the config is combined_default_1b (combined_default_1 with gate
+# d).  At its DESIRED_SPEED of 30 m/s gate b cannot fire (the RL's speed is
+# clamped to MAX_SPEED, also 30 m/s), so the compared ticks and the round
+# take the median of the RL's selected speeds on the first compared tick
+GATE_B_SETTINGS = dict(LIMIT_DQN_SPEED=True,
+                       REMEMBER_LAST_CHOICE_FOR_SWITCHING_COMBINED=True)
+CARRY_FIRST_TICK = 24    # ticks after the ego joins
+CARRY_TICKS = 3
+GATE_B_BATCH = 32
+ST_FAST_CONFIG = "configs/st_fast.json"   # phase 28: OTHER_CAR_SPEED 15
 # (b): st_default at its own widths; the one depth cut is the scenario
 # count, 8 episodes in one round (scenarios 0-7 of phase 6's 128)
 NCCL_SETTINGS = dict(BATCH_SCENARIOS=8, NUM_EPISODES=8,
@@ -554,16 +584,18 @@ def round_report(agg, cfg) -> dict:
     }
 
 
-def combined_round(config: str, batch: int, dev, st_kernel, st_dp) -> dict:
+def combined_round(config: str, batch: int, dev, st_kernel, st_dp,
+                   **settings) -> dict:
     """One round of the combined task through ``evaluate_combined`` with the
-    kernel's launch count set to 0 just before and read just after.  Control
-    ticks are counted at the actor: the arbiter queries it once from the
-    sensed state and once for each further rollout step."""
+    kernel's launch count set to 0 just before and read just after
+    (``settings`` replace the config's).  Control ticks are counted at the
+    actor: the arbiter queries it once from the sensed state and once for
+    each further rollout step."""
     from rl_mpc_lanemerging_torch.agents import ddpg
     from rl_mpc_lanemerging_torch.checkpoint import load_actor
     from rl_mpc_lanemerging_torch.config import Settings
     cfg = Settings.load_from_file(config).replace(
-        NUM_EPISODES=batch, BATCH_SCENARIOS=batch)
+        NUM_EPISODES=batch, BATCH_SCENARIOS=batch, **settings)
     actor = load_actor(cfg.MODEL_NAME, dev, cfg.MINIMUM_NEGATIVE_JERK,
                        cfg.MAXIMUM_POSITIVE_JERK, committed=True)
     queries = CallCount(lambda *a: None)
@@ -1980,7 +2012,8 @@ def mesh_phases(dev, main_cfg, single, states, st_kernel, st_dp) -> dict:
 
     # (f) a newly converted actor through the arbiter
     t0 = time.perf_counter()
-    rep = combined_round(COMBINED_2_CONFIG, BATCH, dev, st_kernel, st_dp)
+    rep = combined_round(COMBINED_2_CONFIG, COMBINED_2_BATCH, dev, st_kernel,
+                         st_dp)
     rows = {line: _run_data_row(line) for line in (92, 241)}
     rep["run_data"] = {line: {k: float(r[k]) for k in
                               ("crashed", "merged", "mean_abs_jerk",
@@ -1993,12 +2026,176 @@ def mesh_phases(dev, main_cfg, single, states, st_kernel, st_dp) -> dict:
           f"{rep['mean_abs_jerk']:.4f} time to merge "
           f"{rep['time_to_merge_s']:.2f} s; run_data.csv "
           + json.dumps(rep["run_data"]), flush=True)
-    assert rep["crash"] * BATCH <= 1 and rep["merge"] * BATCH >= BATCH - 1
+    n = COMBINED_2_BATCH
+    assert rep["crash"] * n <= 1 and rep["merge"] * n >= n - 1
     out["seconds"] = time.perf_counter() - t_phase
     print("   phase 26 parts (s): " + json.dumps(
         {p: out[p]["part_s"] for p in "abcdef"}), flush=True)
     done(t_phase)
     return out
+
+
+def merge_region_grids(cfg, dev, controller, seed: int = 0):
+    """SNAPSHOTS snapshots, SNAPSHOT_EVERY ticks apart from FIRST_SNAPSHOT
+    ticks after the ego joins, of BATCH worlds of ``cfg`` driven through
+    the merge region by ``controller``: (the arguments of st_wavefront per
+    snapshot, the first snapshot's sensed states, its worlds, t_values)."""
+    from rl_mpc_lanemerging_torch.planner.grid import build_st_grid
+    from rl_mpc_lanemerging_torch.sim import (CounterRandom, add_ego,
+                                              init_world, sense, warmup,
+                                              world_step)
+    rng = CounterRandom(seed)
+    worlds = init_world(cfg, BATCH, torch.float32, dev)
+    worlds = warmup(worlds, cfg, int(50.0 / cfg.TICK_LENGTH), rng)
+    worlds = add_ego(worlds, torch.full((BATCH,), 15.0, device=dev))
+    snapshots = []
+    states = worlds0 = t_values = None
+    last_tick = FIRST_SNAPSHOT + SNAPSHOT_EVERY * (SNAPSHOTS - 1)
+    for tick in range(1, last_tick + 1):
+        worlds = world_step(worlds, controller(sense(worlds, cfg)), cfg,
+                            rng)
+        if tick >= FIRST_SNAPSHOT \
+                and (tick - FIRST_SNAPSHOT) % SNAPSHOT_EVERY == 0:
+            sensed = sense(worlds, cfg)
+            g = build_st_grid(sensed, cfg, torch.float32)
+            snapshots.append((g.obstacles, g.s_values, g.ego_speed,
+                              sensed.ego_accel.to(torch.float32),
+                              g.distances))
+            if states is None:
+                states, worlds0, t_values = sensed, worlds, g.t_values
+    return snapshots, states, worlds0, t_values
+
+
+def kernel_vs_plain(snapshots, kw, num_t: int, visited=None):
+    """K1 in one launch over every snapshot's grids against its plain
+    version, snapshot by snapshot: >= 99.9% of the s sequences identical
+    within 1e-4 m and every first-step difference <= 0.101 m.  Returns
+    (the kernel's sequences, as numpy, the identical share, the largest
+    absolute difference)."""
+    from rl_mpc_lanemerging_torch.ops import st_kernel
+    all_args = tuple(torch.cat([snap[i] for snap in snapshots])
+                     for i in range(5))
+    n_grids = all_args[0].shape[0]
+    seq_k = st_kernel.st_wavefront(*all_args, **kw, visited=visited)
+    seq_r = torch.cat([st_kernel.st_wavefront_reference(*snap, **kw)
+                       for snap in snapshots])
+    torch.cuda.synchronize()
+    k_np, r_np = seq_k.cpu().numpy(), seq_r.cpu().numpy()
+    assert k_np.shape == (n_grids, num_t) and np.isfinite(k_np).all()
+    identical = float(np.mean(np.all(np.abs(k_np - r_np) <= 1e-4, axis=1)))
+    first_kr = np.abs((k_np[:, 1] - k_np[:, 0]) - (r_np[:, 1] - r_np[:, 0]))
+    max_abs_err = float(np.abs(k_np - r_np).max())
+    print(f"   {n_grids} grids in one launch: identical paths "
+          f"{identical:.4f} (bar >= 0.999), max first-step diff "
+          f"{first_kr.max():.6f} m (bar <= 0.101), max abs err "
+          f"{max_abs_err:.3g}; complete paths "
+          f"{int((k_np[:, -1] != 0).sum())}", flush=True)
+    assert identical >= 0.999 and first_kr.max() <= 0.101
+    return seq_k, k_np, identical, max_abs_err
+
+
+def gate_b_phase(dev, st_kernel, st_dp) -> dict:
+    """Phase 27: gate b and the hysteresis carry on the card."""
+    from rl_mpc_lanemerging_torch.agents import combined, ddpg
+    from rl_mpc_lanemerging_torch.checkpoint import load_actor
+    from rl_mpc_lanemerging_torch.config import Settings
+    from rl_mpc_lanemerging_torch.sim import (CounterRandom, add_ego,
+                                              init_world, sense, warmup,
+                                              world_step)
+
+    t0 = phase(f"27 gate b and the hysteresis carry: {COMBINED_B_CONFIG} "
+               f"with {json.dumps(GATE_B_SETTINGS)} and DESIRED_SPEED at the "
+               f"RL's median speed, card (kernel) vs CPU (dense twin) over "
+               f"{CARRY_TICKS} ticks of {BATCH} states; a round at "
+               f"B={GATE_B_BATCH}")
+    cfg = Settings.load_from_file(COMBINED_B_CONFIG).replace(
+        **GATE_B_SETTINGS)
+    assert cfg.TEST_ST_STRICTLY_BETTER     # the carry acts inside gate d
+    policy, policy_cpu = (ddpg.actor_jerk(load_actor(
+        cfg.MODEL_NAME, d, cfg.MINIMUM_NEGATIVE_JERK,
+        cfg.MAXIMUM_POSITIVE_JERK, committed=True), cfg)
+        for d in (dev, "cpu"))
+    control, init_carry, _ = combined.combined_controller(policy, cfg)
+    rng = CounterRandom(2)
+    worlds = init_world(cfg, BATCH, torch.float32, dev)
+    worlds = warmup(worlds, cfg, int(50.0 / cfg.TICK_LENGTH), rng)
+    worlds = add_ego(worlds, torch.full((BATCH,), 15.0, device=dev))
+    carry = init_carry(BATCH, dev)
+    for _ in range(CARRY_FIRST_TICK):
+        (speed, _), carry = control(sense(worlds, cfg), carry)
+        worlds = world_step(worlds, speed, cfg, rng)
+    sensed = sense(worlds, cfg)
+    desired = float(combined._rl_rollout(policy, sensed, policy(sensed),
+                                         cfg)[3].median())
+    cfg = cfg.replace(DESIRED_SPEED=desired)
+    # each side carries its own previous choice from the driven run's
+    gates = ("take", "crash_pred", "over_speed", "condemned", "st_better")
+    last_card, last_cpu = carry, carry.cpu()
+    agree, fired, carried, by_carry = [], {g: [0, 0] for g in gates}, 0, 0
+    for tick in range(CARRY_TICKS):
+        sensed = sense(worlds, cfg)
+        carried += int(last_card.sum())
+        card = combined.arbitrate(policy, sensed, cfg, last_card)
+        # where a takeover is carried and gates a-c stay quiet, the carry
+        # decides gate d
+        by_carry += int((last_card & ~(card.crash_pred | card.over_speed
+                                       | card.condemned)).sum())
+        sensed_cpu = to_cpu(sensed)
+        parts = [combined.arbitrate(
+            policy_cpu, type(sensed)(*(x[i:i + 32] for x in sensed_cpu)),
+            cfg, last_cpu[i:i + 32]) for i in range(0, BATCH, 32)]
+        cpu = type(card)(*(torch.cat(x) for x in zip(*parts)))
+        card_cpu = type(card)(*(x.cpu() for x in card))
+        same = card_cpu.take == cpu.take
+        agree.append(same)
+        for i in torch.nonzero(~same)[:, 0].tolist():
+            print(f"   tick {tick} state {i} (carried {bool(last_cpu[i])}): "
+                  + json.dumps({g: [bool(getattr(card_cpu, g)[i]),
+                                    bool(getattr(cpu, g)[i])]
+                                for g in gates}) + " (card, cpu)",
+                  flush=True)
+        for g in gates:
+            fired[g][0] += int(getattr(card_cpu, g).sum())
+            fired[g][1] += int(getattr(cpu, g).sum())
+        last_card, last_cpu = card.take, cpu.take
+        worlds = world_step(worlds, card.speed, cfg, rng)
+    agreement = float(torch.cat(agree).float().mean())
+    print(f"   DESIRED_SPEED {desired:.4f} m/s; {CARRY_TICKS} ticks x "
+          f"{BATCH} states ({carried} of them with "
+          f"a carried takeover, {by_carry} where the carry decides gate d): "
+          f"flag agreement {agreement:.4f} (bar >= 0.97); firings (card, "
+          f"cpu) " + json.dumps(fired), flush=True)
+    assert agreement >= 0.97 and fired["over_speed"][0] > 0 and carried > 0
+    rep = combined_round(COMBINED_B_CONFIG, GATE_B_BATCH, dev, st_kernel,
+                         st_dp, DESIRED_SPEED=desired, **GATE_B_SETTINGS)
+    assert rep["crash"] == 0.0
+    done(t0)
+    return {"desired_speed": desired, "flag_agreement": agreement,
+            "firings": fired,
+            "carried_takeovers": carried, "decided_by_carry": by_carry,
+            "round": rep}
+
+
+def st_fast_phase(dev, st_kernel) -> dict:
+    """Phase 28: K1 against its plain version on st_fast's grids."""
+    from rl_mpc_lanemerging_torch.config import Settings
+    from rl_mpc_lanemerging_torch.ops import st_dp
+    from rl_mpc_lanemerging_torch.planner import mpc
+
+    t0 = phase(f"28 kernel vs plain version, {SNAPSHOTS * BATCH} grids of "
+               f"{ST_FAST_CONFIG}")
+    cfg = Settings.load_from_file(ST_FAST_CONFIG)
+    kw = dict(delta_t=cfg.T_DISCRETIZATION, delta_s=cfg.S_DISCRETIZATION,
+              w=mpc.weights_from_settings(cfg),
+              max_offset=st_dp.default_max_offset(
+                  cfg.MAX_SPEED, cfg.T_DISCRETIZATION, cfg.S_DISCRETIZATION))
+    snapshots = merge_region_grids(cfg, dev,
+                                   mpc.make_batched_controller(cfg))[0]
+    _, k_np, identical, max_abs_err = kernel_vs_plain(snapshots, kw,
+                                                      cfg.num_t)
+    done(t0)
+    return {"grids": len(k_np), "identical": identical,
+            "max_abs_err": max_abs_err}
 
 
 def main() -> int:
@@ -2013,8 +2210,7 @@ def main() -> int:
     from rl_mpc_lanemerging_torch.planner import mpc
     from rl_mpc_lanemerging_torch.planner.grid import build_st_grid
     from rl_mpc_lanemerging_torch import tasks
-    from rl_mpc_lanemerging_torch.sim import (CounterRandom, add_ego,
-                                              init_world, sense, warmup,
+    from rl_mpc_lanemerging_torch.sim import (CounterRandom, sense,
                                               world_step)
     from rl_mpc_lanemerging_torch.sim.episode import (empty_history,
                                                       record_tick)
@@ -2050,45 +2246,15 @@ def main() -> int:
     controller = mpc.make_batched_controller(cfg)
 
     t0 = phase("3 kernel vs plain version, realistic grids")
-    rng = CounterRandom(0)
-    worlds = init_world(cfg, BATCH, torch.float32, dev)
-    worlds = warmup(worlds, cfg, int(50.0 / cfg.TICK_LENGTH), rng)
-    worlds = add_ego(worlds, torch.full((BATCH,), 15.0, device=dev))
-    snapshots = []        # (args of st_wavefront) per snapshot
-    states = worlds0 = t_values = None
-    last_tick = FIRST_SNAPSHOT + SNAPSHOT_EVERY * (SNAPSHOTS - 1)
-    for tick in range(1, last_tick + 1):
-        worlds = world_step(worlds, controller(sense(worlds, cfg)), cfg,
-                            rng)
-        if tick >= FIRST_SNAPSHOT \
-                and (tick - FIRST_SNAPSHOT) % SNAPSHOT_EVERY == 0:
-            sensed = sense(worlds, cfg)
-            g = build_st_grid(sensed, cfg, torch.float32)
-            snapshots.append((g.obstacles, g.s_values, g.ego_speed,
-                              sensed.ego_accel.to(torch.float32),
-                              g.distances))
-            if states is None:      # the first snapshot also feeds 5 and 7
-                states, worlds0, t_values = sensed, worlds, g.t_values
+    snapshots, states, worlds0, t_values = merge_region_grids(
+        cfg, dev, controller)
     args = snapshots[0]
     all_args = tuple(torch.cat([snap[i] for snap in snapshots])
                      for i in range(5))
     n_grids = all_args[0].shape[0]
     visited_all = torch.zeros(1, dtype=torch.int64, device=dev)
-    seq_k = st_kernel.st_wavefront(*all_args, **kw, visited=visited_all)
-    seq_r = torch.cat([st_kernel.st_wavefront_reference(*snap, **kw)
-                       for snap in snapshots])
-    torch.cuda.synchronize()
-    k_np, r_np = seq_k.cpu().numpy(), seq_r.cpu().numpy()
-    assert k_np.shape == (n_grids, cfg.num_t) and np.isfinite(k_np).all()
-    identical = float(np.mean(np.all(np.abs(k_np - r_np) <= 1e-4, axis=1)))
-    first_kr = np.abs((k_np[:, 1] - k_np[:, 0]) - (r_np[:, 1] - r_np[:, 0]))
-    max_abs_err = float(np.abs(k_np - r_np).max())
-    print(f"   {n_grids} grids in one launch: identical paths "
-          f"{identical:.4f} (bar >= 0.999), max first-step diff "
-          f"{first_kr.max():.6f} m (bar <= 0.101), max abs err "
-          f"{max_abs_err:.3g}; complete paths "
-          f"{int((k_np[:, -1] != 0).sum())}", flush=True)
-    assert identical >= 0.999 and first_kr.max() <= 0.101
+    seq_k, k_np, identical, max_abs_err = kernel_vs_plain(
+        snapshots, kw, cfg.num_t, visited=visited_all)
     done(t0)
 
     t0 = phase("4 kernel vs dense twin, same grids")
@@ -2171,6 +2337,7 @@ def main() -> int:
     done(t0)
 
     t0 = phase("7 tick split and kernel timing")
+    rng = CounterRandom(0)
     a0 = args[3]
     op = qp.build_operator(cfg.fine_horizon, cfg.TICK_LENGTH)
     seq, valid, _ = mpc.batched_plan(states, cfg, use_kernel=True)
@@ -2305,6 +2472,8 @@ def main() -> int:
     mesh = mesh_phases(dev, main_cfg,
                        {"columns": cols, "s_per_tick": s_per_tick}, states,
                        st_kernel, st_dp)
+    gate_b = gate_b_phase(dev, st_kernel, st_dp)
+    st_fast = st_fast_phase(dev, st_kernel)
     print(f"   the script: {time.perf_counter() - t_script:.2f} s",
           flush=True)
 
@@ -2314,12 +2483,15 @@ def main() -> int:
         "source": "rl_mpc_lanemerging_torch/csrc/st_wavefront.cu",
         "replaces": "rl_mpc_lanemerging_tpu/ops/st_pallas.py:70",
         "launches": launches + comb["main"]["launches"]
-        + mesh["a"]["launches"] + mesh["f"]["launches"],
+        + mesh["a"]["launches"] + mesh["f"]["launches"]
+        + gate_b["round"]["launches"],
         "launches_st_path": launches,
         "launches_combined_path": comb["main"]["launches"],
         "launches_sharded_st_path": mesh["a"]["launches"],
         "launches_combined_default_2": mesh["f"]["launches"],
-        "max_abs_err": max(max_abs_err, comb["rollout_max_abs_err"]),
+        "launches_gate_b_hysteresis_path": gate_b["round"]["launches"],
+        "max_abs_err": max(max_abs_err, comb["rollout_max_abs_err"],
+                           st_fast["max_abs_err"]),
         "ms": k_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -2356,6 +2528,11 @@ def main() -> int:
         mesh["a"]["s_per_tick_per_rank"],
         "launches_dp_training": mesh["c"]["k1_launches"]
         + mesh["d"]["k1_launches"],
+        "gate_b_hysteresis_flag_agreement": gate_b["flag_agreement"],
+        "gate_b_hysteresis_control_ticks":
+        gate_b["round"]["control_ticks"],
+        "st_fast_grids_compared": st_fast["grids"],
+        "st_fast_identical_paths": st_fast["identical"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -57,17 +57,19 @@ def batched_plan(states: HighwayState, cfg: Settings, dtype=torch.float32,
                  use_kernel: bool = False):
     """Whole-batch grid build + DP solve + trailing-zero trim.
 
-    With ``use_kernel`` the solve goes through ``st_kernel.st_wavefront``
-    (the CUDA kernel for CUDA tensors, its plain version for CPU tensors).
-    Like the JAX package's kernel path, it always runs the jerk-limited DP.
-    Otherwise the dense twin runs, honouring ``USE_FAST_ST_SOLVER``.
+    ``USE_FAST_ST_SOLVER`` picks the DP, as in the reference (st.py:726-768):
+    the jerk-limited DP when True, the no-jerk dense DP when False.  With
+    ``use_kernel`` the jerk-limited DP goes through
+    ``st_kernel.st_wavefront`` (the CUDA kernel for CUDA tensors, its plain
+    version for CPU tensors), otherwise through the dense twin; the no-jerk
+    DP has no kernel and runs dense on either device.
 
     Returns (seq (B, T), valid_len (B,) int32, grids: STGrid).
     """
     grids = build_st_grid(states, cfg, dtype)
     ego_accel = states.ego_accel.to(dtype)
     w = weights_from_settings(cfg)
-    if use_kernel:
+    if use_kernel and cfg.USE_FAST_ST_SOLVER:
         seq = st_kernel.st_wavefront(
             grids.obstacles, grids.s_values, grids.ego_speed, ego_accel,
             grids.distances, cfg.T_DISCRETIZATION, cfg.S_DISCRETIZATION, w,

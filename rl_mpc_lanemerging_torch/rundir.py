@@ -7,9 +7,12 @@ directory under ``runs_torch/<LOG_DIR>`` holding
 * ``settings.json`` — the fully-resolved configuration (config.py:190-192),
 * ``out.log``       — the Python logging stream (config.py:189-191),
 * ``src/``          — a snapshot of the framework sources (config.py:172-177),
-* ``scalars.csv``   — append-only training/eval scalars, the TensorBoard
-  equivalent of the reference's ``SummaryWriter`` calls (dqn.py:259,
-  308-309, 353-354).
+* ``scalars_<key>.csv`` — append-only training/eval scalars, the
+  TensorBoard equivalent of the reference's ``SummaryWriter`` calls
+  (dqn.py:259, 308-309, 353-354): one file per key set, named by its first
+  key: the trainers' progress rows go to ``scalars_avg_return.csv``
+  (DDPG), ``scalars_episodes.csv`` (Rainbow) or ``scalars_epsilon.csv``
+  (custom DQN), their selection evaluations to ``scalars_eval_crash.csv``.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import json
 import logging
 import os
 import shutil
-from typing import Mapping, Optional
+from typing import Mapping
 
 from .config import Settings
 
@@ -37,36 +40,44 @@ class RunDir:
 
     def __init__(self, path: str):
         self.path = path
-        self._scalars_path = os.path.join(path, "scalars.csv")
-        self._scalar_keys: Optional[list] = None
-        self._rotated = False
+        self._headers: dict = {}      # path -> header this run wrote
+
+    def scalars_path(self, keys) -> str:
+        """The file of the rows with this key set: ``scalars_<first key in
+        sorted order>.csv``, one header each, so that the trainers'
+        progress rows and selection-eval rows never share a header."""
+        return os.path.join(self.path, f"scalars_{sorted(keys)[0]}.csv")
 
     def log_scalars(self, step: int, values: Mapping[str, float]) -> None:
         """Append one scalar row (TensorBoard-equivalent; reference
-        dqn.py:308-309 logs loss/epsilon, dqn.py:721-722 eval metrics).
+        dqn.py:308-309 logs loss/epsilon, dqn.py:721-722 eval metrics) to
+        the file of its key set.
 
-        A pre-existing ``scalars.csv`` from an earlier run is rotated to
-        ``scalars.<n>.csv`` on this RunDir's *first* write — lazily, so a
-        re-run that never logs scalars (EVALUATE_* into a training
-        LOG_DIR) leaves the training history untouched (ADVICE r4)."""
-        if not self._rotated:
-            self._rotated = True
-            if os.path.exists(self._scalars_path):
-                n = 1
-                while os.path.exists(os.path.join(self.path,
-                                                  f"scalars.{n}.csv")):
-                    n += 1
-                os.rename(self._scalars_path,
-                          os.path.join(self.path, f"scalars.{n}.csv"))
+        A pre-existing file of that key set from an earlier run is rotated
+        to ``scalars_<key>.<n>.csv`` on this RunDir's *first* write to it —
+        lazily, so a re-run that never logs scalars (EVALUATE_* into a
+        training LOG_DIR) leaves the training history untouched (ADVICE
+        r4).  A key set that differs from its file's header raises."""
         keys = sorted(values)
-        header_needed = not os.path.exists(self._scalars_path)
-        if self._scalar_keys is None:
-            self._scalar_keys = keys
-        with open(self._scalars_path, "a") as fh:
-            if header_needed:
-                fh.write(",".join(["step"] + keys) + "\n")
-            fh.write(",".join([str(step)] + [repr(float(values[k]))
-                                             for k in keys]) + "\n")
+        path = self.scalars_path(keys)
+        header = ",".join(["step"] + keys)
+        lines = []
+        if path not in self._headers:
+            if os.path.exists(path):
+                stem = path[:-len(".csv")]
+                n = 1
+                while os.path.exists(f"{stem}.{n}.csv"):
+                    n += 1
+                os.rename(path, f"{stem}.{n}.csv")
+            self._headers[path] = header
+            lines.append(header)
+        elif self._headers[path] != header:
+            raise ValueError(f"{path} has the columns {self._headers[path]}"
+                             f"; this row has {header}")
+        lines.append(",".join([str(step)] + [repr(float(values[k]))
+                                             for k in keys]))
+        with open(path, "a") as fh:
+            fh.write("\n".join(lines) + "\n")
 
     def save_json(self, name: str, payload) -> None:
         with open(os.path.join(self.path, name), "w") as fh:

@@ -387,15 +387,12 @@ def test_tabular_fold_on_card_matches_cpu():
 # the scenario mesh: two ranks sharing the card over gloo
 # ---------------------------------------------------------------------------
 
-@pytest.mark.cuda
-def test_qp_rows_do_not_depend_on_the_batch_size():
-    """The QP on the card at B=128 equals, bit for bit, the same scenarios
-    solved as two batches of 64 and four of 32 (one scenario per column of
-    the ADMM products): a sharded evaluation replays a one-process one."""
-    _need_card()
+def _qp_parts_against_whole(batch, parts):
+    """The QP on the card at ``batch`` scenarios and the same scenarios
+    solved as ``parts`` equal batches: (whole, split) smoothed paths."""
     from rl_mpc_lanemerging_torch.ops import qp
     rng = np.random.default_rng(5)
-    n, batch = CFG.fine_horizon, 128
+    n = CFG.fine_horizon
     coarse = np.cumsum(rng.uniform(0, 3, (batch, CFG.num_t)), axis=1) \
         + rng.uniform(-150, 0, (batch, 1))
     args = [torch.as_tensor(x, device="cuda") for x in (
@@ -410,12 +407,60 @@ def test_qp_rows_do_not_depend_on_the_batch_size():
               neg_jerk=CFG.MINIMUM_NEGATIVE_JERK,
               iterations=CFG.QP_ITERATIONS)
     whole = qp.finer_fit_qp(*args, op, **kw)[0]
+    size = batch // parts
+    split = torch.cat([qp.finer_fit_qp(*(a[i:i + size] for a in args),
+                                       op, **kw)[0]
+                       for i in range(0, batch, size)])
+    return whole, split
+
+
+@pytest.mark.cuda
+def test_qp_rows_do_not_depend_on_the_batch_size():
+    """The QP on the card at B=128 equals, bit for bit, the same scenarios
+    solved as two batches of 64 and four of 32 (one scenario per column of
+    the ADMM products): a sharded evaluation replays a one-process one."""
+    _need_card()
     for parts in (2, 4):
-        size = batch // parts
-        split = torch.cat([qp.finer_fit_qp(*(a[i:i + size] for a in args),
-                                           op, **kw)[0]
-                           for i in range(0, batch, size)])
+        whole, split = _qp_parts_against_whole(128, parts)
         assert torch.equal(whole, split), parts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch, parts", [(256, 2), (512, 4)])
+def test_qp_rows_past_128_columns_equal_batches_of_128(batch, parts):
+    """The JAX rows' own batches (512, and 256 between): the QP at B equals
+    the same scenarios solved as batches of 128, bit for bit."""
+    _need_card()
+    whole, split = _qp_parts_against_whole(batch, parts)
+    gap = float((whole - split).abs().max())
+    print(f"QP B={batch} vs {parts} x 128: largest gap {gap:.3g} m, "
+          f"{int((whole != split).any(dim=1).sum())} of {batch} paths differ")
+    assert torch.equal(whole, split), gap
+
+
+@pytest.mark.cuda
+def test_no_jerk_config_plans_dense_on_card_as_on_cpu():
+    """USE_FAST_ST_SOLVER=False on the card: the kernel route plans with the
+    no-jerk dense DP (K1 not launched), as on the CPU: >= 97% of 64 paths
+    within 1e-3 m (the same DP in float32 on two devices may settle a
+    near-tie differently); the jerk-limited plan through K1 differs."""
+    _need_card()
+    from rl_mpc_lanemerging_torch.planner import mpc
+    cfg = CFG.replace(FUTURE_S=15.0, USE_FAST_ST_SOLVER=False)
+    states = sensed_states(3, 64, "cpu")
+    card = type(states)(*(x.cuda() for x in states))
+    before = st_kernel.launches
+    seq_k, valid_k, _ = mpc.batched_plan(card, cfg, use_kernel=True)
+    assert st_kernel.launches == before
+    seq_c, valid_c, _ = mpc.batched_plan(states, cfg, use_kernel=True)
+    close = ((seq_k.cpu() - seq_c).abs() <= 1e-3).all(dim=1)
+    print(f"no-jerk plans card vs CPU: {int(close.sum())} of 64 within "
+          f"1e-3 m, valid lengths equal {bool(torch.equal(valid_k.cpu(), valid_c))}")
+    assert float(close.float().mean()) >= 0.97
+    jerk_limited = mpc.batched_plan(card, CFG.replace(FUTURE_S=15.0),
+                                    use_kernel=True)[0]
+    assert st_kernel.launches == before + 1
+    assert not torch.equal(seq_k, jerk_limited)
 
 
 @pytest.mark.cuda

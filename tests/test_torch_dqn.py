@@ -293,7 +293,7 @@ def test_train_loop_on_the_cpu(tmp_path, monkeypatch, capsys):
     out = capsys.readouterr().out
     assert int(state.episodes) >= 6 and refreshes
     assert out.count("[eval @") >= 1 and "selected snapshot" in out
-    for f in ("settings.json", "scalars.csv", "params.npz"):
+    for f in ("settings.json", "scalars_eval_crash.csv", "params.npz"):
         assert os.path.exists(os.path.join("runs_torch/dqn_loop", f))
     net = tcheckpoint.load_dqn("runs/dqn_loop", "cpu")
     for a, b in zip(net.state_dict().values(),

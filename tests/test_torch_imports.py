@@ -19,7 +19,7 @@ def _sources():
         os.path.join(REPO, "scripts", f) for f in
         ("train_custom_dqn_torch.py", "train_tabular_torch.py",
          "multihost_worker_torch.py", "combined_crash_forensics_torch.py",
-         "eval_ddpg_torch.py")]
+         "eval_ddpg_torch.py", "paper_table_torch.py")]
     for root, dirs, files in os.walk(os.path.join(REPO,
                                                   "rl_mpc_lanemerging_torch")):
         dirs[:] = sorted(d for d in dirs if d != "__pycache__")

@@ -79,6 +79,22 @@ def test_plan_st_honours_the_no_jerk_solver():
         _close(plan.s_sequence, want.s_sequence[i], what=f"path {i}")
 
 
+def test_batched_plan_through_the_kernel_route_honours_the_no_jerk_solver():
+    """USE_FAST_ST_SOLVER=False sends the kernel route (``use_kernel=True``,
+    the card's) to the no-jerk DP, as JAX's dense path and the reference
+    do: sequences and valid lengths exactly JAX's, and unlike the
+    jerk-limited plans on some states."""
+    js, ts = _states()
+    cfg, tcfg = (c.replace(USE_FAST_ST_SOLVER=False) for c in (CFG, TCFG))
+    jseq, jvalid, _ = jax.jit(lambda s: jmpc.batched_plan(s, cfg, F64))(js)
+    seq, valid, _ = tmpc.batched_plan(ts, tcfg, torch.float64,
+                                      use_kernel=True)
+    np.testing.assert_array_equal(seq.numpy(), np.asarray(jseq))
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(jvalid))
+    jerk_limited = tmpc.batched_plan(ts, TCFG, torch.float64)[0]
+    assert not torch.equal(seq, jerk_limited)
+
+
 def test_corridor_from_state_matches_jax():
     js, ts = _states()
     last_s = np.random.default_rng(2).uniform(0.0, 40.0, N)

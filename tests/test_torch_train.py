@@ -5,6 +5,7 @@ head, categorical loss (same NoisyNet noise, 1e-10) and greedy controller,
 one train round of each trainer with the JAX world's draws replayed (the
 JAX counters), and the training tasks and EVALUATE_DQN through the CLI."""
 
+import csv
 import functools
 import json
 import os
@@ -26,6 +27,7 @@ from rl_mpc_lanemerging_torch.agents import ddpg as tddpg
 from rl_mpc_lanemerging_torch.agents import rainbow as trainbow
 from rl_mpc_lanemerging_torch.models.ddpg import DDPGActor, DDPGCritic
 from rl_mpc_lanemerging_torch.models.rainbow import RainbowNet
+from rl_mpc_lanemerging_torch.rundir import RunDir
 from rl_mpc_lanemerging_tpu.agents import ddpg as jddpg
 from rl_mpc_lanemerging_tpu.agents import rainbow as jrainbow
 from rl_mpc_lanemerging_tpu.checkpoint import load_params
@@ -386,6 +388,38 @@ def _cli_config(tmp_path, **kw):
     path = tmp_path / f"{kw['LOG_DIR']}.json"
     path.write_text(json.dumps(base))
     return str(path)
+
+
+@pytest.mark.parametrize("progress", [
+    {"episodes": 3, "avg_return": -1.5, "lr": 1e-4},      # DDPG
+    {"episodes": 3, "lr": 1e-4},                          # Rainbow
+    {"epsilon": 0.5, "loss": 0.25},                       # custom DQN
+], ids=["ddpg", "rainbow", "dqn"])
+def test_scalars_keep_one_schema_per_file(tmp_path, progress):
+    """A trainer's progress rows and selection-eval rows, interleaved, land
+    in one file per key set, each read back by ``csv.DictReader`` into the
+    keys and values it was given; a later run rotates each file."""
+    selection = {"eval_crash": 0.0, "eval_merge": 1.0, "eval_jerk": 0.5,
+                 "eval_t_merge": 26.5}
+    rows = [(10, progress), (20, selection), (30, progress),
+            (40, selection)]
+    run = RunDir(str(tmp_path))
+    for step, values in rows:
+        run.log_scalars(step, values)
+    assert len(os.listdir(tmp_path)) == 2
+    for values in (progress, selection):
+        with open(run.scalars_path(values)) as fh:
+            read = list(csv.DictReader(fh))
+        want = [(s, v) for s, v in rows if v is values]
+        assert [int(r.pop("step")) for r in read] == [s for s, _ in want]
+        assert read == [{k: repr(float(x)) for k, x in v.items()}
+                        for _, v in want]
+    RunDir(str(tmp_path)).log_scalars(50, selection)
+    assert sorted(os.listdir(tmp_path)) == sorted(
+        [os.path.basename(run.scalars_path(progress)),
+         "scalars_eval_crash.csv", "scalars_eval_crash.1.csv"])
+    with pytest.raises(ValueError):
+        run.log_scalars(60, {"eval_crash": 1.0})
 
 
 def test_cli_trains_and_resumes_ddpg_on_the_cpu(tmp_path, monkeypatch,
