@@ -1020,7 +1020,8 @@ def training_phases(dev, batch: int = BATCH) -> dict:
     update_ms = wall_ms(lambda: [ddpg._update(
         state.actor, state.critic, state.target_actor, state.target_critic,
         state.actor_opt, state.critic_opt,
-        rb.sample(state.replay, ddpg.DDPG_BATCH, generator=state.generator)[1])
+        rb.sample(state.replay, ddpg.DDPG_BATCH,
+                  generator=state.draws.generator)[1])
         for _ in range(UPDATES_PER_TICK)]) / UPDATES_PER_TICK
     prof = tick_profile(lambda: ddpg.train_round(
         state, cfg, 1, UPDATES_PER_TICK), ticks=1, ranges=ddpg.UPDATE_STAGES)
@@ -1125,8 +1126,8 @@ def training_phases(dev, batch: int = BATCH) -> dict:
     step_ms = wall_ms(lambda: rainbow._grad_step(
         state.net, state.target_net, state.opt,
         rb.sample(state.replay, rainbow.RAINBOW_BATCH,
-                  generator=state.generator)[1],
-        sample_noise(state.net, state.generator)))
+                  generator=state.draws.generator)[1],
+        sample_noise(state.net, state.draws.generator)))
     env_tick_ms = wall_ms(lambda: rainbow.train_round(state, dqn_cfg, 1,
                                                       grad_steps=0))
     rep.update(env_tick_ms=env_tick_ms, grad_step_ms=step_ms)

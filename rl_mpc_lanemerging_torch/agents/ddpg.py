@@ -21,8 +21,10 @@ What the port does differently, and why:
   per tick until the threshold is crossed and none after.
 * The counters stay on the device; ``_train_frames`` reads them once per
   round, as the JAX trainer does.
-* Exploration noise and replay draws come from one ``torch.Generator`` on
-  the env's device; the world's draws from its own source (``sim/rng.py``).
+* Exploration noise and replay draws come from a draw source
+  (``agents/draws.py``; by default one ``torch.Generator`` on the env's
+  device), so that a test can replay JAX's; the world's draws come from
+  its own source (``sim/rng.py``).
 * Data parallelism (``make_sharded_train``) is one process per rank, each
   with its own envs, replay and parameter copy; ``group`` switches on the
   gradient averaging of ``parallel/sharded.py`` where JAX ``pmean``s.
@@ -55,6 +57,7 @@ from ..rundir import RUNS_ROOT
 from ..sim.world import WorldState
 from ..stats import StatsAggregator
 from .combined import _speed_from_jerk, combined_controller
+from .draws import GeneratorDraws
 
 __all__ = ["DDPGTrainState", "make_train_state", "train_round",
            "make_sharded_train", "train", "actor_jerk", "actor_controller",
@@ -86,7 +89,7 @@ class DDPGTrainState:
     replay: rb.Replay
     env: MergeEnvState
     world_rng: object            # the world's draw source (sim/rng.py)
-    generator: torch.Generator   # exploration noise and replay draws
+    draws: object                # exploration noise and replay draws
     episodes: torch.Tensor       # () int64
     frames: torch.Tensor         # () int64
     ret_acc: torch.Tensor        # (B,) running return of the episode
@@ -119,16 +122,19 @@ def derive_seed(seed: int) -> int:
 def make_train_state(cfg: Settings, world: WorldState, world_rng, seed: int,
                      lr: Optional[float] = None,
                      wait_before_start: float = 20.0,
-                     init_params: Optional[tuple] = None) -> DDPGTrainState:
+                     init_params: Optional[tuple] = None,
+                     draws=None) -> DDPGTrainState:
     """A fresh trainer on the worlds' device and dtype.  ``seed`` draws the
-    initial networks (on the CPU) and seeds the device generator;
-    ``init_params`` is (actor, critic) ``state_dict``s to start from."""
+    initial networks (on the CPU) and seeds the default draw source, a
+    generator on the device; ``init_params`` is (actor, critic)
+    ``state_dict``s to start from."""
     device, dtype = world.ego_arc.device, world.ego_arc.dtype
-    actor, critic = _nets(cfg, torch.Generator().manual_seed(seed))
+    # cast before loading, so that parameters finer than float32 survive
+    actor, critic = (m.to(device=device, dtype=dtype) for m in _nets(
+        cfg, torch.Generator().manual_seed(seed)))
     if init_params is not None:
         actor.load_state_dict(init_params[0])
         critic.load_state_dict(init_params[1])
-    actor, critic = (m.to(device=device, dtype=dtype) for m in (actor, critic))
     lr = lr if lr is not None else cfg.LEARNING_RATE
     batch = world.ego_arc.shape[0]
 
@@ -144,7 +150,7 @@ def make_train_state(cfg: Settings, world: WorldState, world_rng, seed: int,
                               discrete=False, dtype=dtype, device=device),
         env=env_reset(world, cfg, wait_before_start=wait_before_start),
         world_rng=world_rng,
-        generator=torch.Generator(device=device).manual_seed(seed),
+        draws=draws or GeneratorDraws.seeded(seed, device),
         episodes=zero(dt=torch.int64), frames=zero(dt=torch.int64),
         ret_acc=zero(batch), ep_ret_sum=zero(), ep_ret_n=zero())
 
@@ -217,14 +223,13 @@ def train_round(state: DDPGTrainState, cfg: Settings, env_ticks: int = 64,
     transitions (the smallest replay decides, ``agree_min``): a rank that
     stepped into an update's ``all_reduce`` alone would wait forever, so
     every rank makes the same number of updates."""
-    g = state.generator
+    draws = state.draws
     for _ in range(env_ticks):
         env = state.env
         with torch.no_grad():
             a_mean = state.actor(env.obs)[:, 0]
-        noise = NOISE_SIGMA * torch.randn(a_mean.shape, generator=g,
-                                          dtype=a_mean.dtype,
-                                          device=a_mean.device)
+        noise = NOISE_SIGMA * draws.action_noise(a_mean.shape, a_mean.dtype,
+                                                 a_mean.device)
         action = torch.clamp(a_mean + noise, cfg.MINIMUM_NEGATIVE_JERK,
                              cfg.MAXIMUM_POSITIVE_JERK)
         state.env, tr = env_step(env, action, cfg, state.world_rng,
@@ -250,10 +255,12 @@ def train_round(state: DDPGTrainState, cfg: Settings, env_ticks: int = 64,
                 else agree_min(state.replay.size, group)
             state.learning = bool(size >= REPLAY_START)
         if state.learning:
+            p = state.replay.priority
             for _ in range(updates_per_tick):
                 with record_function("ddpg.replay_draw"):
                     _, batch = rb.sample(state.replay, DDPG_BATCH,
-                                         generator=g)
+                                         u=draws.replay_uniform(
+                                             DDPG_BATCH, p.dtype, p.device))
                 _update(state.actor, state.critic, state.target_actor,
                         state.target_critic, state.actor_opt,
                         state.critic_opt, batch, group)
@@ -266,12 +273,12 @@ def make_sharded_train(cfg: Settings, mesh, seed: int, lr: float,
                        init_params: Optional[tuple] = None,
                        wait_before_start: float = 20.0):
     """Data-parallel trainer over the scenario mesh (JAX ddpg.py:216-254):
-    each rank owns a full local train state (envs, replay, generator and a
+    each rank owns a full local train state (envs, replay, draws and a
     parameter copy) on the current card, or on the CPU when the mesh is a
     CPU mesh; its updates average their gradients over the ranks, so the
     copies stay identical (SURVEY §2.3; the reference trains strictly
     single-process, dqn.py:272-354).  Rank i's worlds draw from SEED + i
-    and its generator from ``sharded.rank_seed(seed, i)``; rank 0's initial
+    and its draws from ``sharded.rank_seed(seed, i)``; rank 0's initial
     parameters (``init_params``, or its own draw) are broadcast to every
     rank.
 

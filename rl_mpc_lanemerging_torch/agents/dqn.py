@@ -14,9 +14,8 @@ conversion never marks them, rl.py:194-215).
 As in ``agents/ddpg.py``, the network and optimiser are torch objects
 updated in place, the scans are Python loops, and ``jax.lax.cond(replay.size
 >= BATCH_SIZE)`` is one host read per round.  Every draw comes from a draw
-source (``GeneratorDraws`` by default), so that a test can feed another
-implementation's draws.  Data parallelism (``make_sharded_train``) is one
-process per rank, as in ``agents/ddpg.py``.
+source (``agents/draws.py``).  Data parallelism (``make_sharded_train``) is
+one process per rank, as in ``agents/ddpg.py``.
 """
 
 from __future__ import annotations
@@ -40,32 +39,11 @@ from ..rl.obs import state_vector
 from ..sim.world import WorldState
 from .combined import _speed_from_jerk
 from .ddpg import _adam, _step
+from .draws import GeneratorDraws
 
 __all__ = ["GeneratorDraws", "DQNTrainState", "make_train_state",
            "epsilon_by_episode", "train_round", "make_sharded_train",
            "refresh_target", "train", "greedy_controller"]
-
-
-class GeneratorDraws:
-    """The trainer's draws from one ``torch.Generator``: the exploration
-    uniforms and random actions of each collect tick, and the replay
-    uniforms of each grad step."""
-
-    def __init__(self, generator: torch.Generator):
-        self.generator = generator
-
-    def explore(self, batch: int, device) -> torch.Tensor:
-        return torch.rand((batch,), generator=self.generator,
-                          dtype=torch.float64, device=device)
-
-    def random_action(self, batch: int, num_actions: int, device
-                      ) -> torch.Tensor:
-        return torch.randint(0, num_actions, (batch,),
-                             generator=self.generator, device=device)
-
-    def replay_uniform(self, batch: int, dtype, device) -> torch.Tensor:
-        return torch.rand((batch,), generator=self.generator, dtype=dtype,
-                          device=device)
 
 
 @dataclasses.dataclass
@@ -96,13 +74,11 @@ def make_train_state(cfg: Settings, world: WorldState, world_rng, seed: int,
     initial network (on the CPU) and seeds the default draws;
     ``init_params`` is a ``state_dict`` to start from."""
     device, dtype = world.ego_arc.device, world.ego_arc.dtype
-    net = _net(cfg, torch.Generator().manual_seed(seed))
+    # cast before loading, so that parameters finer than float32 survive
+    net = _net(cfg, torch.Generator().manual_seed(seed)).to(device=device,
+                                                            dtype=dtype)
     if init_params is not None:
         net.load_state_dict(init_params)
-    net = net.to(device=device, dtype=dtype)
-    if draws is None:
-        draws = GeneratorDraws(torch.Generator(device=device).manual_seed(
-            seed))
     zero = torch.zeros((), dtype=torch.int64, device=device)
     return DQNTrainState(
         net=net, target_net=copy.deepcopy(net).requires_grad_(False),
@@ -110,7 +86,8 @@ def make_train_state(cfg: Settings, world: WorldState, world_rng, seed: int,
         replay=rb.init_replay(cfg.REPLAY_BUFFER_SIZE, cfg.obs_dim,
                               discrete=True, dtype=dtype, device=device),
         env=env_reset(world, cfg, wait_before_start=wait_before_start),
-        world_rng=world_rng, draws=draws, episodes=zero,
+        world_rng=world_rng,
+        draws=draws or GeneratorDraws.seeded(seed, device), episodes=zero,
         loss_sum=torch.zeros((), dtype=dtype, device=device))
 
 

@@ -12,9 +12,10 @@ lr-drop "extended" retrain pipeline (rainbow.py:85-106).
 
 As in ``agents/ddpg.py``, the scans are Python loops, the replay-start
 condition is a host check, the counters stay on the device, and the
-NoisyNet noise, the epsilon draws and the replay draws come from one
-``torch.Generator`` on the env's device.  The noise is drawn apart from its
-use and passed to the net (``models/rainbow.py``).
+NoisyNet noise, the epsilon draws and the replay draws come from a draw
+source (``agents/draws.py``; by default one ``torch.Generator`` on the env's
+device).  The noise is drawn apart from its use and passed to the net
+(``models/rainbow.py``).
 """
 
 from __future__ import annotations
@@ -30,13 +31,14 @@ from .._device import const, pin_fp32_matmul, resolve_device
 from ..checkpoint import load_params, save_params
 from ..config import Settings
 from ..envs.merge_env import EnvKind, MergeEnvState, env_reset, env_step
-from ..models.rainbow import RainbowNet, atom_support, sample_noise
+from ..models.rainbow import RainbowNet, atom_support
 from ..rl import replay as rb
 from ..rl.obs import state_vector
 from ..sim.world import WorldState
 from ..stats import StatsAggregator
 from .combined import _speed_from_jerk
 from .ddpg import _adam, _step, derive_seed
+from .draws import GeneratorDraws
 
 __all__ = ["NStepStage", "init_stage", "stage_push", "nstep_head",
            "RainbowTrainState", "make_train_state", "train_round",
@@ -135,7 +137,7 @@ class RainbowTrainState:
     env: MergeEnvState
     stage: NStepStage
     world_rng: object            # the world's draw source (sim/rng.py)
-    generator: torch.Generator   # noise, epsilon and replay draws
+    draws: object                # noise, epsilon and replay draws
     episodes: torch.Tensor       # () int64
     frames: torch.Tensor         # () int64
     learning: bool = False       # the replay has reached REPLAY_START
@@ -155,16 +157,18 @@ def _support(like: torch.Tensor) -> torch.Tensor:
 def make_train_state(cfg: Settings, world: WorldState, world_rng, seed: int,
                      lr: Optional[float] = None,
                      wait_before_start: float = 20.0,
-                     init_params: Optional[dict] = None
-                     ) -> RainbowTrainState:
+                     init_params: Optional[dict] = None,
+                     draws=None) -> RainbowTrainState:
     """A fresh trainer on the worlds' device and dtype.  ``seed`` draws the
-    initial network (on the CPU) and seeds the device generator;
-    ``init_params`` is a ``state_dict`` to start from."""
+    initial network (on the CPU) and seeds the default draw source, a
+    generator on the device; ``init_params`` is a ``state_dict`` to start
+    from."""
     device, dtype = world.ego_arc.device, world.ego_arc.dtype
-    net = _net(cfg, torch.Generator().manual_seed(seed))
+    # cast before loading, so that parameters finer than float32 survive
+    net = _net(cfg, torch.Generator().manual_seed(seed)).to(device=device,
+                                                            dtype=dtype)
     if init_params is not None:
         net.load_state_dict(init_params)
-    net = net.to(device=device, dtype=dtype)
     lr = lr if lr is not None else cfg.LEARNING_RATE
     batch = world.ego_arc.shape[0]
     zero = torch.zeros((), dtype=torch.int64, device=device)
@@ -176,7 +180,7 @@ def make_train_state(cfg: Settings, world: WorldState, world_rng, seed: int,
         env=env_reset(world, cfg, wait_before_start=wait_before_start),
         stage=init_stage(batch, cfg.obs_dim, dtype=dtype, device=device),
         world_rng=world_rng,
-        generator=torch.Generator(device=device).manual_seed(seed),
+        draws=draws or GeneratorDraws.seeded(seed, device),
         episodes=zero, frames=zero.clone())
 
 
@@ -239,7 +243,7 @@ def train_round(state: RainbowTrainState, cfg: Settings, env_ticks: int = 64,
     """Collect ``env_ticks`` ticks (NoisyNet forward, greedy over E[Z], plus
     epsilon-greedy), then ``grad_steps`` learner steps with PER and the
     annealed beta once the replay holds REPLAY_START transitions."""
-    g = state.generator
+    draws = state.draws
     net = state.net
     z = _support(state.env.obs)
     n_act = len(cfg.JERK_VALUES_DQN)
@@ -249,15 +253,14 @@ def train_round(state: RainbowTrainState, cfg: Settings, env_ticks: int = 64,
         # NoisyNet exploration: noisy forward pass, greedy over E[Z]; plus
         # epsilon-greedy on top (the reference's custom trainer's
         # staircase-epsilon, dqn.py:275-276)
-        noise = sample_noise(net, g)
+        noise = draws.tick_noise(net)
         with torch.no_grad():
             q = (torch.softmax(net(env.obs, noise), dim=-1) * z).sum(dim=-1)
         action = torch.argmax(q, dim=-1)
         b, dev = action.shape[0], action.device
-        explore = torch.rand((b,), generator=g, dtype=z.dtype,
-                             device=dev) < epsilon
-        action = torch.where(explore, torch.randint(
-            0, n_act, (b,), generator=g, device=dev), action)
+        explore = draws.explore(b, dev, z.dtype) < epsilon
+        action = torch.where(explore, draws.random_action(b, n_act, dev),
+                             action)
         state.env, tr = env_step(env, action, cfg, state.world_rng,
                                  EnvKind.JERK,
                                  max_episode_length=cfg.MAX_EPISODE_LENGTH,
@@ -278,13 +281,15 @@ def train_round(state: RainbowTrainState, cfg: Settings, env_ticks: int = 64,
     if not state.learning:
         state.learning = bool(state.replay.size >= REPLAY_START)
     if state.learning:
+        p = state.replay.priority
         for _ in range(grad_steps):
             idx, batch, weights = rb.sample_with_weights(
-                state.replay, RAINBOW_BATCH, beta, generator=g)
+                state.replay, RAINBOW_BATCH, beta,
+                u=draws.replay_uniform(RAINBOW_BATCH, p.dtype, p.device))
             if not cfg.USE_PRIORITIZED_ER:
                 weights = None
             _, ce = _grad_step(net, state.target_net, state.opt, batch,
-                               sample_noise(net, g), weights)
+                               draws.step_noise(net), weights)
             if cfg.USE_PRIORITIZED_ER:
                 rb.update_priorities(state.replay, idx, ce, cfg)
         state.grad_steps += grad_steps

@@ -21,7 +21,7 @@ collectives.  The reference has no distributed execution at all (SURVEY
 * The train state.  JAX stacks n local train states into one global state
   with a leading device axis (``stack_states``, ``unstack_states``,
   ``shard_train_state``).  Here each rank already holds its own local state
-  (its envs, replay, generator and parameter copy) in its own process, so
+  (its envs, replay, draws and parameter copy) in its own process, so
   nothing is stacked or placed: ``make_sharded_train`` in ``agents/ddpg.py``
   and ``agents/dqn.py`` builds it on each rank with
   :func:`data_parallel_state`.  What is left of the helpers is

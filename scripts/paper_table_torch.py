@@ -102,6 +102,8 @@ METRICS = (("crashed", "crash"), ("merged", "merge"),
            ("mean_abs_jerk", "mean abs jerk"),
            ("time_to_merge", "time to merge (s)"),
            ("percent st solver", "percent st solver"))
+# the heading of the section that scripts/train_curve_torch.py writes
+CURVE_SECTION = "## DDPG learning curve"
 CHAIN_DIR = os.path.join("runs_torch", "chain")
 CHAIN_LOG_DIR = "chain_rainbow_default1"
 
@@ -324,6 +326,30 @@ def dqn_chain(frames: float, episodes: int) -> None:
         print(f"{task}: {time.perf_counter() - t0:.2f} s", flush=True)
 
 
+def put_section(path: str, heading: str, text: str) -> None:
+    """Write ``text``, a section that starts with the line ``heading``, at
+    the end of the file at ``path``, in place of that section's earlier
+    text; the rest of the file stays as it is."""
+    old = ""
+    if os.path.exists(path):
+        with open(path) as fh:
+            old = fh.read()
+    if heading in old:
+        old = old[:old.index(heading)]
+    with open(path, "w") as fh:
+        fh.write(old.rstrip("\n") + "\n\n" + text if old else text)
+
+
+def _kept_sections(path: str) -> str:
+    """The sections that other scripts put at the end of ``path``
+    (``scripts/train_curve_torch.py``: "DDPG learning curve")."""
+    if not os.path.exists(path):
+        return ""
+    with open(path) as fh:
+        old = fh.read()
+    return old[old.index(CURVE_SECTION):] if CURVE_SECTION in old else ""
+
+
 def _cell(v: Optional[float], sem: Optional[float]) -> str:
     if v is None:
         return "-"
@@ -440,8 +466,9 @@ def compare(csv_path: str, out_path: str) -> str:
               *(f"- {m}" for m in missing or ["none"]), "",
               f"Flagged metrics: {flags_total}.", ""]
     text = "\n".join(lines)
+    kept = _kept_sections(out_path)
     with open(out_path, "w") as fh:
-        fh.write(text)
+        fh.write(text + ("\n" + kept if kept else ""))
     return text
 
 

@@ -101,6 +101,10 @@ def _t(x, dtype):
     return torch.as_tensor(np.array(x)).to(dtype)
 
 
+def _jd(dtype):
+    return jnp.float64 if dtype == torch.float64 else jnp.float32
+
+
 class JaxReplay:
     """A draw source for the port that replays the JAX world's own
     ``jax.random`` draws from the same key chain, so that per-step parity
@@ -125,20 +129,90 @@ class JaxReplay:
             self.key = np.where(adv[:, None], self.next_key, self.key)
         self.step = steps.copy()
 
-    @staticmethod
-    def _jdtype(dtype):
-        return jnp.float64 if dtype == torch.float64 else jnp.float32
-
     def step_draws(self, steps, dtype):
         self._sync(steps)
         nxt, vary, typ, sf, dep = _jax_step_draws(jnp.asarray(self.key),
-                                                  self._jdtype(dtype))
+                                                  _jd(dtype))
         self.next_key = np.asarray(nxt)
         return StepDraws(vary=_t(vary, dtype), type_idx=_t(typ, torch.int64),
                          speed_factor=_t(sf, dtype), depart=_t(dep, dtype))
 
     def start_normal(self, steps, dtype):
         self._sync(steps)
-        nxt, z = _jax_start_draw(jnp.asarray(self.key), self._jdtype(dtype))
+        nxt, z = _jax_start_draw(jnp.asarray(self.key), _jd(dtype))
         self.key = np.asarray(nxt)
         return _t(z, dtype)
+
+
+def jax_noisy_noise(key, dims):
+    """The noise the JAX RainbowNet draws from ``key`` (models/rainbow.py:
+    one split per layer, then one for eps_in and one for eps_out), f(e) =
+    sign(e) sqrt(|e|), for layers of (in, out) widths ``dims``."""
+    def f(e):
+        return jnp.sign(e) * jnp.sqrt(jnp.abs(e))
+
+    out = []
+    for k, (n_in, n_out) in zip(jax.random.split(key, len(dims)), dims):
+        k1, k2 = jax.random.split(k)
+        out.append((f(jax.random.normal(k1, (n_in,))),
+                    f(jax.random.normal(k2, (n_out,)))))
+    return out
+
+
+def _noise_of(key, net):
+    dims = [tuple(layer.w_mu.shape) for layer in net.layers.values()]
+    dtype = next(net.parameters()).dtype
+    return [tuple(_t(e, dtype) for e in pair)
+            for pair in jax_noisy_noise(key, dims)]
+
+
+class JaxDDPGDraws:
+    """A draw source for the port's DDPG trainer that replays the JAX
+    trainer's key chain (agents/ddpg.py): one split per tick for the
+    exploration normals (:155-157), one per update for the replay uniforms
+    (:182, rl/replay.py:109)."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def _split(self):
+        self.key, k = jax.random.split(self.key)
+        return k
+
+    def action_noise(self, shape, dtype, device):
+        return _t(jax.random.normal(self._split(), tuple(shape)), dtype)
+
+    def replay_uniform(self, batch, dtype, device):
+        return _t(jax.random.uniform(self._split(), (batch,), _jd(dtype)),
+                  dtype)
+
+
+class JaxRainbowDraws:
+    """A draw source for the port's Rainbow trainer that replays the JAX
+    trainer's key chain (agents/rainbow.py): a four-way split per collect
+    tick (NoisyNet noise, epsilon uniforms, random actions; :235-246) and a
+    three-way split per grad step (replay uniforms, then the online net's
+    noise from the first half of the loss key; :271, :169)."""
+
+    def __init__(self, key):
+        self.key = key
+        self.k_eps = self.k_act = self.k_loss = None
+
+    def tick_noise(self, net):
+        self.key, k_noise, self.k_eps, self.k_act = jax.random.split(
+            self.key, 4)
+        return _noise_of(k_noise, net)
+
+    def explore(self, batch, device, dtype=torch.float64):
+        return _t(jax.random.uniform(self.k_eps, (batch,)), dtype)
+
+    def random_action(self, batch, num_actions, device):
+        return _t(jax.random.randint(self.k_act, (batch,), 0, num_actions,
+                                     jnp.int32), torch.int64)
+
+    def replay_uniform(self, batch, dtype, device):
+        self.key, k_sample, self.k_loss = jax.random.split(self.key, 3)
+        return _t(jax.random.uniform(k_sample, (batch,), _jd(dtype)), dtype)
+
+    def step_noise(self, net):
+        return _noise_of(jax.random.split(self.k_loss)[0], net)

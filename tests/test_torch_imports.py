@@ -5,6 +5,7 @@ Each file is parsed, not imported, so that an import inside a function
 counts too."""
 
 import ast
+import glob
 import os
 
 import pytest
@@ -15,11 +16,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
 
 
 def _sources():
-    paths = [os.path.join(REPO, "chip_smoke.py")] + [
-        os.path.join(REPO, "scripts", f) for f in
-        ("train_custom_dqn_torch.py", "train_tabular_torch.py",
-         "multihost_worker_torch.py", "combined_crash_forensics_torch.py",
-         "eval_ddpg_torch.py", "paper_table_torch.py")]
+    paths = [os.path.join(REPO, "chip_smoke.py")] + sorted(
+        glob.glob(os.path.join(REPO, "scripts", "*_torch.py")))
     for root, dirs, files in os.walk(os.path.join(REPO,
                                                   "rl_mpc_lanemerging_torch")):
         dirs[:] = sorted(d for d in dirs if d != "__pycache__")
@@ -46,6 +44,12 @@ def test_port_imports_no_jax(path):
     bad = [m for m in imported_modules(path)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+def test_every_port_script_is_scanned():
+    names = {os.path.basename(p) for p in _sources()}
+    assert {"paper_table_torch.py", "train_curve_torch.py",
+            "eval_ddpg_torch.py"} <= names
 
 
 def test_the_guard_sees_imports_inside_functions(tmp_path):

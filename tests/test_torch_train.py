@@ -3,7 +3,9 @@ Flax-style initialisation of the DDPG nets, the DDPG update (1 and 10 steps
 from the same parameters and Adam state, 1e-9), the Rainbow net, n-step
 head, categorical loss (same NoisyNet noise, 1e-10) and greedy controller,
 one train round of each trainer with the JAX world's draws replayed (the
-JAX counters), and the training tasks and EVALUATE_DQN through the CLI."""
+JAX counters) and with every JAX draw replayed (parameters, Adam moments
+and priorities, 1e-7), the default draw source's order, and the training
+tasks and EVALUATE_DQN through the CLI."""
 
 import csv
 import functools
@@ -17,16 +19,18 @@ import optax
 import pytest
 import torch
 
-from _torch_parity import (JaxReplay, jax_state_to_torch, jax_world_to_torch,
-                           random_states)
+from _torch_parity import (JaxDDPGDraws, JaxRainbowDraws, JaxReplay,
+                           jax_noisy_noise, jax_state_to_torch,
+                           jax_world_to_torch, random_states)
 from _torch_ranks import torch_ddpg as _torch_ddpg
 from rl_mpc_lanemerging_torch import checkpoint as tcheckpoint
 from rl_mpc_lanemerging_torch import convert, main as tmain
 from rl_mpc_lanemerging_torch import tasks as ttasks
 from rl_mpc_lanemerging_torch.agents import ddpg as tddpg
 from rl_mpc_lanemerging_torch.agents import rainbow as trainbow
+from rl_mpc_lanemerging_torch.agents.draws import GeneratorDraws
 from rl_mpc_lanemerging_torch.models.ddpg import DDPGActor, DDPGCritic
-from rl_mpc_lanemerging_torch.models.rainbow import RainbowNet
+from rl_mpc_lanemerging_torch.models.rainbow import RainbowNet, sample_noise
 from rl_mpc_lanemerging_torch.rundir import RunDir
 from rl_mpc_lanemerging_tpu.agents import ddpg as jddpg
 from rl_mpc_lanemerging_tpu.agents import rainbow as jrainbow
@@ -34,6 +38,7 @@ from rl_mpc_lanemerging_tpu.checkpoint import load_params
 from rl_mpc_lanemerging_tpu.config import Settings
 from rl_mpc_lanemerging_tpu.models import ddpg as jmodels
 from rl_mpc_lanemerging_tpu.prediction import HighwayState
+from rl_mpc_lanemerging_tpu.rl import replay as jrb
 from rl_mpc_lanemerging_tpu.sim import world as jworld
 
 SMALL = dict(MAX_CARS=16, MAX_SENSED_CARS=8, REPLAY_BUFFER_SIZE=2048)
@@ -144,20 +149,6 @@ def test_ddpg_update_matches_jax(updates):
 
 # --- Rainbow ---------------------------------------------------------------
 
-def _jax_noise(key, dims):
-    """The noise the JAX RainbowNet draws from ``key`` (rainbow.py:44-48,
-    64)."""
-    def f(e):
-        return jnp.sign(e) * jnp.sqrt(jnp.abs(e))
-
-    out = []
-    for k, (n_in, n_out) in zip(jax.random.split(key, 3), dims):
-        k1, k2 = jax.random.split(k)
-        out.append((f(jax.random.normal(k1, (n_in,))),
-                    f(jax.random.normal(k2, (n_out,)))))
-    return out
-
-
 @functools.lru_cache(maxsize=None)
 def _rainbow_params():
     return _f64(load_params(RAINBOW_RUN)["q_dist"])
@@ -178,7 +169,7 @@ def test_rainbow_net_matches_flax_apply_with_the_same_noise():
     obs = np.random.default_rng(0).normal(size=(16, CFG.obs_dim))
     key = jax.random.PRNGKey(7)
     noise = [tuple(torch.as_tensor(np.asarray(e)) for e in pair)
-             for pair in _jax_noise(key, DIMS)]
+             for pair in jax_noisy_noise(key, DIMS)]
     tnet = _torch_rainbow(params)
     for j_rng, t_noise in ((None, None), (key, noise)):
         want = net.apply(params, jnp.asarray(obs), rng=j_rng)
@@ -284,7 +275,7 @@ def test_categorical_loss_matches_jax(weighted):
                    (c.cell_contents for c in loss_fn.__closure__)))["m"]
     # the online net's noise: the first half of the loss key (rainbow.py:245)
     noise = [tuple(torch.as_tensor(np.asarray(e)) for e in pair)
-             for pair in _jax_noise(jax.random.split(key)[0], DIMS)]
+             for pair in jax_noisy_noise(jax.random.split(key)[0], DIMS)]
     t_loss, t_ce, t_m = trainbow._categorical_loss(
         _torch_rainbow(params), _torch_rainbow(target),
         {k: torch.as_tensor(v) for k, v in b.items()}, noise,
@@ -367,6 +358,240 @@ def test_train_round_counts_match_jax(trainer, monkeypatch):
     assert int(ts.replay.size) == int(js.replay.size) >= 32
     assert steps > 0 and ts.learning
     assert all(bool(torch.isfinite(p).all()) for p in params)
+
+
+ROUND_ATOL = 1e-7
+
+
+def _assert_tree(got, want, atol, what):
+    """A port tree (``convert.tree_from_state_dict``) against a JAX one."""
+    assert sorted(got["params"]) == sorted(want["params"]), what
+    for layer, leaves in want["params"].items():
+        for leaf, value in leaves.items():
+            np.testing.assert_allclose(got["params"][layer][leaf],
+                                       np.asarray(value), atol=atol, rtol=0,
+                                       err_msg=f"{what}/{layer}/{leaf}")
+
+
+def _assert_net(module, tree, what):
+    _assert_tree(convert.tree_from_state_dict(module.state_dict()), tree,
+                 ROUND_ATOL, what)
+
+
+def _assert_adam(opt, module, jax_opt_state, what):
+    """Both moments of a torch Adam against optax's, in the Flax layout,
+    and the step count exactly."""
+    adam = jax_opt_state[0]
+    named = list(module.named_parameters())
+    assert {int(opt.state[p]["step"]) for _, p in named} == {int(adam.count)}
+    for key, want in (("exp_avg", adam.mu), ("exp_avg_sq", adam.nu)):
+        got = convert.tree_from_state_dict(
+            {n: opt.state[p][key] for n, p in named})
+        _assert_tree(got, want, ROUND_ATOL, f"{what} {key}")
+
+
+def _assert_replay(replay, jreplay):
+    assert int(replay.size) == int(jreplay.size)
+    assert int(replay.pos) == int(jreplay.pos)
+    _close(replay.priority[:replay.capacity], jreplay.priority, ROUND_ATOL,
+           "priority")
+
+
+def _f64_jax_replay(monkeypatch):
+    monkeypatch.setattr(jrb, "init_replay", functools.partial(
+        jrb.init_replay, dtype=jnp.float64))
+
+
+SHORT = dict(MAX_EPISODE_LENGTH=3.0)         # episodes end inside a round
+
+
+def test_ddpg_round_matches_jax_with_its_draws(monkeypatch):
+    """One 30-tick round at B=4 (3 s episodes after 2 s of warmup), float64
+    on both sides (the JAX replay made float64 too), REPLAY_START 32 and 4
+    updates per tick, every draw JAX's
+    (world, exploration noise, replay): actor, critic, both targets, both
+    Adam moments and the replay's priorities within 1e-7 of JAX's; the
+    counters, the replay's cursor and each scenario's running return
+    exact, the sum of the ended episodes' returns to 1e-14 (XLA and torch
+    add the scenarios in other orders)."""
+    lr = 1e-3
+    cfg, tcfg = CFG.replace(**SHORT), TCFG.replace(**SHORT)
+    _f64_jax_replay(monkeypatch)
+    for mod in (jddpg, tddpg):
+        monkeypatch.setattr(mod, "REPLAY_START", 32)
+        monkeypatch.setattr(mod, "DDPG_REPLAY_CAPACITY", 4096)
+    jw = _jax_worlds(5)
+    js = jddpg.make_train_state(cfg, jw, jax.random.PRNGKey(0), lr=lr,
+                                wait_before_start=WAIT)
+    ap, cp = _f64(js.actor_params), _f64(js.critic_params)
+    js = js._replace(actor_params=ap, critic_params=cp, target_actor=ap,
+                     target_critic=cp, actor_opt=optax.adam(lr).init(ap),
+                     critic_opt=optax.adam(lr).init(cp))
+    ts = tddpg.make_train_state(
+        tcfg, jax_world_to_torch(jw), JaxReplay(jw.rng), seed=0, lr=lr,
+        wait_before_start=WAIT,
+        init_params=(convert.ddpg_actor_from_numpy(ap),
+                     convert.ddpg_critic_from_numpy(cp)),
+        draws=JaxDDPGDraws(js.rng))
+    js = jddpg.train_round(js, cfg, lr=lr, env_ticks=30, updates_per_tick=4,
+                           wait_before_start=WAIT)
+    ts = tddpg.train_round(ts, tcfg, env_ticks=30, updates_per_tick=4,
+                           wait_before_start=WAIT)
+    assert ts.updates > 0 and int(ts.episodes) > 0
+    for name in ("frames", "episodes"):
+        assert int(getattr(ts, name)) == int(getattr(js, name)), name
+    np.testing.assert_array_equal(ts.ret_acc.numpy(), np.asarray(js.ret_acc))
+    np.testing.assert_allclose(float(ts.ep_ret_sum), float(js.ep_ret_sum),
+                               rtol=1e-14)
+    assert float(ts.ep_ret_n) == float(js.ep_ret_n)
+    for module, tree, name in (
+            (ts.actor, js.actor_params, "actor"),
+            (ts.critic, js.critic_params, "critic"),
+            (ts.target_actor, js.target_actor, "target actor"),
+            (ts.target_critic, js.target_critic, "target critic")):
+        _assert_net(module, tree, name)
+    _assert_adam(ts.actor_opt, ts.actor, js.actor_opt, "actor")
+    _assert_adam(ts.critic_opt, ts.critic, js.critic_opt, "critic")
+    _assert_replay(ts.replay, js.replay)
+
+
+def test_rainbow_round_matches_jax_with_its_draws(monkeypatch):
+    """One 30-tick round at B=4 (3 s episodes after 2 s of warmup), float64
+    on both sides, REPLAY_START 32, 16 grad steps and epsilon 0.5, every
+    draw JAX's (world, NoisyNet noise of each tick and grad step, epsilon
+    uniforms, random actions, PER uniforms): the online and target nets,
+    both Adam moments and the replay's priorities within 1e-7 of JAX's; the
+    counters, the replay's cursor and the n-step window's flags exact.  The
+    JAX init is float64 under x64, so the port's nets must take float64
+    ``init_params`` without rounding them to float32."""
+    lr = 1e-3
+    cfg, tcfg = CFG.replace(**SHORT), TCFG.replace(**SHORT)
+    _f64_jax_replay(monkeypatch)
+    for mod in (jrainbow, trainbow):
+        monkeypatch.setattr(mod, "REPLAY_START", 32)
+    jw = _jax_worlds(5)
+    js = jrainbow.make_train_state(cfg, jw, jax.random.PRNGKey(0), lr=lr,
+                                   wait_before_start=WAIT)
+    params = _f64(js.params)
+    js = js._replace(params=params, target_params=params,
+                     opt_state=optax.adam(lr).init(params))
+    ts = trainbow.make_train_state(
+        tcfg, jax_world_to_torch(jw), JaxReplay(jw.rng), seed=0, lr=lr,
+        wait_before_start=WAIT, init_params=convert.rainbow_from_numpy(params),
+        draws=JaxRainbowDraws(js.rng))
+    js = jrainbow.train_round(js, cfg, lr=lr, env_ticks=30, grad_steps=16,
+                              wait_before_start=WAIT, epsilon=0.5)
+    ts = trainbow.train_round(ts, tcfg, env_ticks=30, grad_steps=16,
+                              wait_before_start=WAIT, epsilon=0.5)
+    assert ts.grad_steps == 16 and int(ts.episodes) > 0
+    for name in ("frames", "episodes"):
+        assert int(getattr(ts, name)) == int(getattr(js, name)), name
+    assert ts.stage.fill == int(js.stage.fill)
+    for name in ("action", "terminal", "valid"):
+        np.testing.assert_array_equal(getattr(ts.stage, name).numpy(),
+                                      np.asarray(getattr(js.stage, name)))
+    _assert_net(ts.net, js.params, "net")
+    _assert_net(ts.target_net, js.target_params, "target")
+    _assert_adam(ts.opt, ts.net, js.opt_state, "net")
+    _assert_replay(ts.replay, js.replay)
+    init_pri = TCFG.PER_MAX_PRIORITY ** TCFG.PER_ALPHA
+    assert int((ts.replay.priority[:int(ts.replay.size)] != init_pri).sum())
+
+
+class _Recording:
+    """A draw source that hands on another's draws and records each call:
+    (method, arguments, result)."""
+
+    def __init__(self, inner):
+        self.inner, self.calls = inner, []
+
+    def __getattr__(self, name):
+        fn = getattr(self.inner, name)
+
+        def call(*args):
+            out = fn(*args)
+            self.calls.append((name, args, out))
+            return out
+        return call
+
+
+def _seeded_round(trainer, monkeypatch, draws=None):
+    """A seeded round of the port alone, at B=4 in float64 on the CPU."""
+    tmod = tddpg if trainer == "ddpg" else trainbow
+    monkeypatch.setattr(tmod, "REPLAY_START", 32)
+    monkeypatch.setattr(tddpg, "DDPG_REPLAY_CAPACITY", 4096)
+    cfg = TCFG.replace(BATCH_SCENARIOS=4, SEED=7, **SHORT)
+    worlds, world_rng = ttasks.make_worlds(cfg, dtype=F64, device="cpu")
+    state = tmod.make_train_state(cfg, worlds, world_rng, seed=3,
+                                  wait_before_start=WAIT, draws=draws)
+    if trainer == "ddpg":
+        return tddpg.train_round(state, cfg, env_ticks=30,
+                                 updates_per_tick=4, wait_before_start=WAIT)
+    return trainbow.train_round(state, cfg, env_ticks=30, grad_steps=8,
+                                wait_before_start=WAIT, epsilon=0.5)
+
+
+def _the_generator_call(name, args, g, net):
+    """What the trainers called on their generator before the draw source
+    took the calls over, for each of its methods."""
+    if name in ("tick_noise", "step_noise"):
+        return sample_noise(net, g)
+    if name == "action_noise":
+        shape, dtype, device = args
+        return torch.randn(shape, generator=g, dtype=dtype, device=device)
+    if name == "random_action":
+        batch, n, device = args
+        return torch.randint(0, n, (batch,), generator=g, device=device)
+    if name == "explore":
+        batch, device, dtype = args
+    else:                                    # replay_uniform
+        batch, dtype, device = args
+    return torch.rand((batch,), generator=g, dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("trainer", ["ddpg", "rainbow"])
+def test_default_draws_are_the_generator_calls_in_their_order(trainer,
+                                                              monkeypatch):
+    """The default draw source leaves a seeded round as it was before the
+    seam: a round through a recorder of the default source equals the plain
+    round bit for bit; the draws come in the trainer's order (DDPG: the
+    tick's noise, then one replay draw per update; Rainbow: each tick's
+    noise, epsilon uniforms and random actions, then per grad step the PER
+    uniforms and the step's noise); and each equals the generator call the
+    trainer made before, on a fresh generator of the same seed, which ends
+    in the same state as the round's."""
+    plain = _seeded_round(trainer, monkeypatch)
+    rec = _Recording(GeneratorDraws(torch.Generator().manual_seed(3)))
+    seen = _seeded_round(trainer, monkeypatch, draws=rec)
+    nets = ("actor", "critic", "target_actor", "target_critic") \
+        if trainer == "ddpg" else ("net", "target_net")
+    for net in nets:
+        for a, b in zip(getattr(plain, net).parameters(),
+                        getattr(seen, net).parameters()):
+            assert torch.equal(a, b), net
+    assert int(plain.frames) == int(seen.frames) > 0
+    assert torch.equal(plain.replay.priority, seen.replay.priority)
+    if trainer == "ddpg":
+        learning = plain.updates // 4
+        order = [n for t in range(30) for n in ["action_noise"] + (
+            ["replay_uniform"] * 4 if t >= 30 - learning else [])]
+        net = None
+    else:
+        learning = plain.grad_steps
+        order = ["tick_noise", "explore", "random_action"] * 30 \
+            + ["replay_uniform", "step_noise"] * learning
+        net = seen.net
+    assert learning > 0
+    assert [c[0] for c in rec.calls] == order
+    g = torch.Generator().manual_seed(3)
+    for name, args, out in rec.calls:
+        want = _the_generator_call(name, args, g, net)
+        if isinstance(out, list):
+            assert all(torch.equal(a, b) for pa, pb in zip(out, want)
+                       for a, b in zip(pa, pb)), name
+        else:
+            assert torch.equal(out, want), name
+    assert torch.equal(g.get_state(), plain.draws.generator.get_state())
 
 
 def _short_evaluations(monkeypatch):
