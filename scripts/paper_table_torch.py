@@ -102,8 +102,9 @@ METRICS = (("crashed", "crash"), ("merged", "merge"),
            ("mean_abs_jerk", "mean abs jerk"),
            ("time_to_merge", "time to merge (s)"),
            ("percent st solver", "percent st solver"))
-# the heading of the section that scripts/train_curve_torch.py writes
+# the headings of the sections that scripts/train_curve_torch.py writes
 CURVE_SECTION = "## DDPG learning curve"
+RAINBOW_SECTION = "## Rainbow learning curve"
 CHAIN_DIR = os.path.join("runs_torch", "chain")
 CHAIN_LOG_DIR = "chain_rainbow_default1"
 
@@ -327,27 +328,34 @@ def dqn_chain(frames: float, episodes: int) -> None:
 
 
 def put_section(path: str, heading: str, text: str) -> None:
-    """Write ``text``, a section that starts with the line ``heading``, at
-    the end of the file at ``path``, in place of that section's earlier
-    text; the rest of the file stays as it is."""
+    """Write ``text``, a section that starts with the line ``heading``, in
+    place of that section's earlier text, or at the end of the file at
+    ``path`` where it has none; the rest of the file stays as it is."""
     old = ""
     if os.path.exists(path):
         with open(path) as fh:
             old = fh.read()
+    after = ""
     if heading in old:
-        old = old[:old.index(heading)]
+        start = old.index(heading)
+        end = old.find("\n## ", start + len(heading))
+        old, after = old[:start], "" if end < 0 else old[end + 1:]
     with open(path, "w") as fh:
-        fh.write(old.rstrip("\n") + "\n\n" + text if old else text)
+        fh.write((old.rstrip("\n") + "\n\n" + text if old else text)
+                 + ("\n" + after if after else ""))
 
 
 def _kept_sections(path: str) -> str:
     """The sections that other scripts put at the end of ``path``
-    (``scripts/train_curve_torch.py``: "DDPG learning curve")."""
+    (``scripts/train_curve_torch.py``: "DDPG learning curve", "Rainbow
+    learning curve")."""
     if not os.path.exists(path):
         return ""
     with open(path) as fh:
         old = fh.read()
-    return old[old.index(CURVE_SECTION):] if CURVE_SECTION in old else ""
+    starts = [old.index(h) for h in (CURVE_SECTION, RAINBOW_SECTION)
+              if h in old]
+    return old[min(starts):] if starts else ""
 
 
 def _cell(v: Optional[float], sem: Optional[float]) -> str:

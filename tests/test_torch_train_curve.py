@@ -194,8 +194,12 @@ def test_compare_applies_the_rule_and_writes_its_section(tmp_path):
     ((0.1, 0.0), (0.0, 0.0), False),         # no spread at all: any gap
     ((0.0, 0.1), (0.3, 0.0), True),          # exactly 3 SEM: not beyond
     ((0.0, 0.1), (0.31, 0.0), False),
+    ((0.12, 0.03), (0.0, 0.03), True),       # both spread: 3 sqrt(2) SEM
+    ((0.13, 0.03), (0.0, 0.03), False),
 ])
 def test_each_quantity_is_held_to_three_sems(port, jax, holds):
+    """Each rule, DDPG's and Rainbow's, holds |jerk| (and each of its other
+    quantities) to 3 SEM of the difference, and its count of seeds to one."""
     side = {"crash": (0.0, 0.0), "merge": (1.0, 0.0), "jerk": (0.4, 0.0),
             "reach_frames": (0.0, 0.0), "reached": 4, "n": 4}
     rows, counts_hold, verdict = tc.decide({**side, "jerk": port},
@@ -205,6 +209,21 @@ def test_each_quantity_is_held_to_three_sems(port, jax, holds):
     assert verdict == ("agrees" if holds else "differs")
     _, counts_hold, verdict = tc.decide({**side, "reached": 2}, side)
     assert not counts_hold and verdict == "differs"
+    side = {"crash": (0.06, 0.01), "merge": (0.9, 0.01), "jerk": (0.12, 0.0),
+            "t_merge": (34.2, 0.2), "score": (0.13, 0.01),
+            "stage1_score": (0.25, 0.05), "no_worse": 2, "n": 4}
+    for i, name in enumerate(("crash", "merge", "jerk", "t_merge", "score",
+                              "stage1_score")):
+        rows, counts_hold, verdict = tc.decide_rainbow(
+            {**side, name: port}, {**side, name: jax})
+        assert rows[i][-1] is holds and counts_hold
+        assert all(r[-1] for j, r in enumerate(rows) if j != i)
+        assert verdict == ("agrees" if holds else "differs")
+    for port_count, hold in ((2, True), (3, False), (0, True)):
+        _, counts_hold, verdict = tc.decide_rainbow(
+            {**side, "no_worse": port_count}, {**side, "no_worse": 1})
+        assert counts_hold is hold
+        assert verdict == ("agrees" if hold else "differs")
 
 
 def test_logged_runs_are_read_from_the_jax_packages_scalars():
