@@ -169,7 +169,18 @@ exits non-zero:
     2 kernel launches per control tick;
 28. kernel vs plain version on 512 grids of st_fast (OTHER_CAR_SPEED 15,
     the steepest obstacle bands), taken as in phase 3: >= 99.9% identical
-    paths, every first-step difference <= 0.101 m.
+    paths, every first-step difference <= 0.101 m;
+29. the learning curve's mid-stage handoff (``scripts/train_curve_torch.py``)
+    on the card at B=128 on train_default_1: from a fresh DDPG trainer
+    whose replay 120 ticks with no update filled past REPLAY_START, 40
+    learning ticks straight, twice (the card's own floor of run-to-run
+    difference), and 20 ticks, the handoff written, loaded into a freshly
+    built trainer, 10 more, a delta handoff written and loaded into
+    another fresh trainer, then 10 more: every tensor the handoff carries
+    (networks, targets, Adam moments and steps, the replay ring, env and
+    world, the draw generator, counters) equals the straight run's
+    wherever the two straight runs are equal; the seconds and sizes of
+    both handoffs.
 
 Every phase prints its seconds, and the script its total.
 Prints the ``kernels`` JSON line before the last line, and as the last line
@@ -235,6 +246,8 @@ ROLLOUT_SNAPSHOT_EVERY = 12
 # 0.29 s per control tick with warmup included: a round of 100 s episodes
 # (every st_default episode merges first) took 178 ticks, 52 s.
 MAX_EPISODE_LENGTH = 100.0
+HANDOFF_TICKS = 20       # phase 29: learning ticks before and after the
+HANDOFF_DIR = "runs_torch/chip_smoke/handoff"   # handoff
 TIMING_RUNS = 25
 LAUNCHES_PER_RUN = 20
 SNAPSHOTS = 4            # of the 128 worlds, SNAPSHOT_EVERY ticks apart
@@ -2199,6 +2212,115 @@ def st_fast_phase(dev, st_kernel) -> dict:
             "max_abs_err": max_abs_err}
 
 
+def _differing(a, b) -> torch.Tensor:
+    """Per element of two tensors of one shape and dtype: their bits
+    differ."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    return (a.view(torch.uint8).reshape(a.numel(), -1)
+            != b.view(torch.uint8).reshape(b.numel(), -1)).any(dim=1)
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def handoff_phase(dev) -> dict:
+    """Phase 29: the curve script's handoff, a round trip on the card."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "scripts"))
+    import train_curve_torch as curve
+    from rl_mpc_lanemerging_torch import tasks
+    from rl_mpc_lanemerging_torch.agents import ddpg
+    from rl_mpc_lanemerging_torch.config import Settings
+
+    t0 = phase(f"29 mid-stage handoff, train_default_1, B={BATCH}")
+    cfg = Settings.load_from_file(TRAIN_CONFIG).replace(BATCH_SCENARIOS=BATCH)
+
+    def fresh():
+        worlds, world_rng = tasks.make_worlds(cfg, device=dev)
+        return ddpg.make_train_state(cfg, worlds, world_rng, seed=29)
+
+    def learn(state, ticks):
+        state = ddpg.train_round(state, cfg, env_ticks=ticks,
+                                 updates_per_tick=UPDATES_PER_TICK)
+        torch.cuda.synchronize(dev)
+        return state
+
+    def filled():
+        state = ddpg.train_round(fresh(), cfg, env_ticks=DDPG_FILL_TICKS,
+                                 updates_per_tick=0)
+        assert state.learning, int(state.replay.size)
+        return state
+
+    seconds = {}
+    trees = []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        trees.append(curve.train_state_tree(learn(filled(),
+                                                  2 * HANDOFF_TICKS)))
+        seconds.setdefault("straight_s", []).append(time.perf_counter() - t1)
+    t1 = time.perf_counter()
+    state = learn(filled(), HANDOFF_TICKS)
+    key = curve.handoff_key(29, 1, BATCH, 1e6, 5, 2048)
+    whole, delta = (curve.handoff_path(HANDOFF_DIR, 29, 1, n) for n in (1, 2))
+    seconds["save_s"], size = curve.save_handoff(whole, state, key, {})
+    t2 = time.perf_counter()
+    resumed = fresh()
+    base = curve.load_handoff(whole, resumed, key)["ring"]
+    seconds["load_s"] = time.perf_counter() - t2
+    # half the ticks after, a delta against the loaded ring, loaded beside
+    # the whole handoff it names
+    resumed = learn(resumed, HANDOFF_TICKS // 2)
+    seconds["delta_save_s"], delta_size = curve.save_handoff(
+        delta, resumed, key, {}, base)
+    t2 = time.perf_counter()
+    resumed = fresh()
+    curve.load_handoff(delta, resumed, key)
+    seconds["delta_load_s"] = time.perf_counter() - t2
+    for name in (whole, delta):
+        os.remove(name)
+    resumed = learn(resumed, HANDOFF_TICKS - HANDOFF_TICKS // 2)
+    seconds["resumed_s"] = time.perf_counter() - t1
+    got = curve.train_state_tree(resumed)
+    a, b = dict(_leaves(trees[0])), dict(_leaves(trees[1]))
+    r = dict(_leaves(got))
+    assert a.keys() == b.keys() == r.keys()
+    elements = floor = off = 0
+    for name, x in a.items():
+        if not isinstance(x, torch.Tensor):
+            assert x == b[name] == r[name], (name, x, b[name], r[name])
+            continue
+        assert x.shape == r[name].shape and x.dtype == r[name].dtype, name
+        same = ~_differing(x, b[name])
+        bad = _differing(x, r[name]) & same
+        elements += x.numel()
+        floor += int((~same).sum())
+        if bad.any():
+            off += int(bad.sum())
+            print(f"   {name}: {int(bad.sum())} of {x.numel()} values differ "
+                  "from the straight run where the straight runs agree",
+                  flush=True)
+    rep = {"elements": elements, "straight_runs_differ": floor,
+           "resumed_differs_where_straight_agree": off,
+           "handoff_bytes": size, "delta_bytes": delta_size,
+           "replay_rows": int(state.replay.size),
+           "updates": int(resumed.updates),
+           **{k: v for k, v in seconds.items()}}
+    print("   " + json.dumps(rep) + " (bar: 0 values of the resumed run off "
+          "the straight run where the straight runs agree)", flush=True)
+    assert off == 0 and int(resumed.updates) == 2 * HANDOFF_TICKS \
+        * UPDATES_PER_TICK
+    done(t0)
+    return rep
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2475,6 +2597,7 @@ def main() -> int:
                        st_kernel, st_dp)
     gate_b = gate_b_phase(dev, st_kernel, st_dp)
     st_fast = st_fast_phase(dev, st_kernel)
+    handoff_phase(dev)
     print(f"   the script: {time.perf_counter() - t_script:.2f} s",
           flush=True)
 

@@ -41,6 +41,7 @@ a seed cut after its first stage runs both again.
 from __future__ import annotations
 
 import argparse
+import fcntl
 import json
 import os
 import sys
@@ -62,10 +63,11 @@ from rl_mpc_lanemerging_tpu.config import Settings  # noqa: E402
 # the sizes and the recording that both sides share; the port's script
 # imports no JAX
 from train_curve_torch import (  # noqa: E402
-    BATCH, CONFIG, EVAL_EPISODES, EVAL_EVERY, FINAL_EPISODES, FRAMES,
-    RAINBOW_CONFIG, RAINBOW_EPISODES, RAINBOW_EVAL_EVERY, RAINBOW_FRAMES,
-    RAINBOW_YARDSTICKS, SEEDS, Recorder, curve_record, final_stats,
-    rainbow_record, read_stages, stage_schedule, timed_rounds)
+    BATCH, CONFIG, DDPG_FRAMES, DDPG_YARDSTICKS, EVAL_EPISODES, EVAL_EVERY,
+    FINAL_EPISODES, FRAMES, RAINBOW_CONFIG, RAINBOW_EPISODES,
+    RAINBOW_EVAL_EVERY, RAINBOW_FRAMES, RAINBOW_YARDSTICKS, SEEDS, Recorder,
+    curve_record, final_stats, rainbow_record, read_stages, stage_lr,
+    stage_record, stage_schedule, timed_rounds)
 
 OUT = os.path.join(REPO, "scripts", "jax_train_yardsticks.json")
 
@@ -166,6 +168,61 @@ def run_rainbow(seed: int, frames: float, batch: int = BATCH,
     return records
 
 
+def run_ddpg(seed: int, frames: float, batch: int = BATCH,
+             eval_every: int = EVAL_EVERY, eval_episodes: int = EVAL_EPISODES,
+             final_episodes: int = FINAL_EPISODES, overrides=None,
+             on_stage=None) -> list:
+    """Both stages of ``ddpg.train`` for one seed, and the final selected
+    snapshot over ``final_episodes`` episodes; returns the two records
+    (``on_stage`` gets each as its stage ends)."""
+    cfg = seed_config(seed, batch, overrides)
+    rng = tasks.seed_key(cfg)
+    init, best, records = None, {}, []
+    for stage in (1, 2):
+        t0 = time.perf_counter()
+        lr = stage_lr(cfg, stage)
+        scfg = cfg if stage == 1 else cfg.replace(
+            LOG_DIR=cfg.LOG_DIR + "_extended")
+        key = rng if stage == 1 else jax.random.split(rng)[0]
+        state = ddpg.make_train_state(scfg, tasks.make_worlds(scfg), key,
+                                      lr=lr, init_params=init)
+        run, frames_after = Recorder(), []
+        seconds, restore = timed_rounds(ddpg, jax.block_until_ready,
+                                        frames=frames_after)
+        eval_seconds, restore_eval = timed_rounds(
+            ddpg, jax.block_until_ready, "_eval_actor")
+        try:
+            state = ddpg._train_frames(scfg, state, frames, lr, verbose=True,
+                                       run=run, eval_every_rounds=eval_every,
+                                       eval_episodes=eval_episodes, best=best)
+        finally:
+            restore()
+            restore_eval()
+        train_s = time.perf_counter() - t0
+        selected = best.get("params") or (state.actor_params,
+                                          state.critic_params)
+        rec = stage_record("ddpg", CONFIG, seed, stage, batch, frames, state,
+                           lr, seconds, frames_after, eval_seconds, run, best,
+                           1 if stage == 1 or selected is init else 2,
+                           eval_every, eval_episodes)
+        if stage == 2:
+            t1 = time.perf_counter()
+            controller = jax.jit(ddpg.actor_controller(selected[0], cfg))
+            agg = tasks.evaluate_controller(cfg, controller,
+                                            num_episodes=final_episodes,
+                                            verbose=False)
+            rec.update(final=final_stats(agg, final_episodes),
+                       final_s=time.perf_counter() - t1)
+        rec.update(train_s=train_s, wall_s=time.perf_counter() - t0,
+                   platform="cpu", cpu_count=len(os.sched_getaffinity(0)),
+                   jax=jax.__version__)
+        records.append(rec)
+        if on_stage is not None:
+            on_stage(rec)
+        init = selected
+    return records
+
+
 def load(path: str, empty: dict) -> dict:
     """The records in ``path``, or ``empty`` where there is no file."""
     if not os.path.exists(path):
@@ -179,32 +236,56 @@ def _save(path: str, data: dict) -> None:
         json.dump(data, fh, indent=1)
 
 
-def main_rainbow(args, **sizes) -> dict:
-    data = load(args.out, {"records": []})
+def _update(path: str, change) -> dict:
+    """``change`` the records of ``path`` in place under a lock, so that
+    several seeds, each in a process of its own, can share the file."""
+    with open(path, "a+") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        fh.seek(0)
+        text = fh.read()
+        data = json.loads(text) if text.strip() else {"records": []}
+        change(data)
+        fh.seek(0)
+        fh.truncate()
+        json.dump(data, fh, indent=1)
+        fh.flush()
+        fcntl.flock(fh, fcntl.LOCK_UN)
+    return data
+
+
+def main_stages(args, runner, **sizes) -> dict:
+    """Both stages of each seed through ``runner`` (``run_rainbow`` or
+    ``run_ddpg``), one record per (seed, stage) under ``records``."""
     for seed in args.seeds:
-        done = read_stages(data["records"])
+        done = read_stages(load(args.out, {"records": []})["records"],
+                           args.trainer)
         if all((seed, stage) in done and done[(seed, stage)]["frames_budget"]
                >= args.frames for stage in (1, 2)):
             print(f"seed {seed}: both stages already in {args.out}",
                   flush=True)
             continue
-        data["records"] = [r for r in data["records"] if r["seed"] != seed]
 
-        def on_stage(rec):
-            data["records"].append(rec)
-            _save(args.out, data)
+        def drop(data, seed=seed):
+            data["records"] = [r for r in data["records"]
+                               if r["seed"] != seed
+                               or r.get("trainer") != args.trainer]
+
+        _update(args.out, drop)
+
+        def on_stage(rec, seed=seed):
+            _update(args.out, lambda data: data["records"].append(rec))
             print(f"seed {seed} stage {rec['stage']}: {rec['frames']} frames "
                   f"in {rec['rounds']} rounds, "
                   f"{rec['s_per_round_median']:.2f} s per round (CPU); "
                   f"selected @ {rec['selected']['frames']} (stage "
                   f"{rec['selected']['stage']})", flush=True)
 
-        final = run_rainbow(seed, args.frames, on_stage=on_stage,
-                            **sizes)[-1]["final"]
+        final = runner(seed, args.frames, on_stage=on_stage,
+                       **sizes)[-1]["final"]
         print(f"seed {seed}: crash {final['crash']:.4f} merge "
               f"{final['merge']:.4f} |jerk| {final['jerk']:.4f} over "
               f"{final['episodes']} episodes", flush=True)
-    return data
+    return load(args.out, {"records": []})
 
 
 def main(argv=None, **sizes) -> dict:
@@ -216,12 +297,19 @@ def main(argv=None, **sizes) -> dict:
     ap.add_argument("--frames", type=float, default=None,
                     help="valid frames (per stage): 4e5 (ddpg), 1e6 "
                     "(rainbow)")
+    ap.add_argument("--stage", choices=("1", "both"), default="1",
+                    help="ddpg: stage 1 alone (the 4e5-frame curve), or "
+                    "both stages of ddpg.train (rainbow: always both)")
     ap.add_argument("--out", default=None, metavar="PATH")
     args = ap.parse_args(argv)
     if args.trainer == "rainbow":
         args.frames = args.frames or RAINBOW_FRAMES
         args.out = args.out or RAINBOW_YARDSTICKS
-        return main_rainbow(args, **sizes)
+        return main_stages(args, run_rainbow, **sizes)
+    if args.stage == "both":
+        args.frames = args.frames or DDPG_FRAMES
+        args.out = args.out or DDPG_YARDSTICKS
+        return main_stages(args, run_ddpg, **sizes)
     args.frames = args.frames or FRAMES
     args.out = args.out or OUT
     data = load(args.out, {"seeds": {}})

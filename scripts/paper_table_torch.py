@@ -105,6 +105,7 @@ METRICS = (("crashed", "crash"), ("merged", "merge"),
 # the headings of the sections that scripts/train_curve_torch.py writes
 CURVE_SECTION = "## DDPG learning curve"
 RAINBOW_SECTION = "## Rainbow learning curve"
+DDPG_SECTION = "## DDPG learning curve, 1e6 + 1e6 frames"
 CHAIN_DIR = os.path.join("runs_torch", "chain")
 CHAIN_LOG_DIR = "chain_rainbow_default1"
 
@@ -336,8 +337,9 @@ def put_section(path: str, heading: str, text: str) -> None:
         with open(path) as fh:
             old = fh.read()
     after = ""
-    if heading in old:
-        start = old.index(heading)
+    line = heading + "\n"           # the whole line: one heading may start
+    if old.startswith(line) or "\n" + line in old:   # another
+        start = 0 if old.startswith(line) else old.index("\n" + line) + 1
         end = old.find("\n## ", start + len(heading))
         old, after = old[:start], "" if end < 0 else old[end + 1:]
     with open(path, "w") as fh:
@@ -348,13 +350,13 @@ def put_section(path: str, heading: str, text: str) -> None:
 def _kept_sections(path: str) -> str:
     """The sections that other scripts put at the end of ``path``
     (``scripts/train_curve_torch.py``: "DDPG learning curve", "Rainbow
-    learning curve")."""
+    learning curve", "DDPG learning curve, 1e6 + 1e6 frames")."""
     if not os.path.exists(path):
         return ""
     with open(path) as fh:
         old = fh.read()
-    starts = [old.index(h) for h in (CURVE_SECTION, RAINBOW_SECTION)
-              if h in old]
+    starts = [old.index(h) for h in (CURVE_SECTION, RAINBOW_SECTION,
+                                     DDPG_SECTION) if h in old]
     return old[min(starts):] if starts else ""
 
 

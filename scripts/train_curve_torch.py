@@ -58,6 +58,32 @@ merge, |jerk|, time to merge and selection score, and stage 1's selection
 score, to 3 standard errors of the difference, and the counts of seeds no
 worse than ``rainbow_default1_extended`` to one, and writes the section
 "Rainbow learning curve".
+
+    python scripts/train_curve_torch.py --run --trainer ddpg --stage 1|2
+        [--seeds 0 1 2 3] [--frames 1e6] [--episodes 2048]
+        [--handoffs runs_torch/curve_ddpg] [--time-limit SECONDS]
+        [--handoff-after-blocks N] [--out ...]
+    python scripts/train_curve_torch.py --compare --trainer ddpg --stage both
+        [--yardsticks scripts/jax_ddpg_yardsticks.json]
+
+``--trainer ddpg --stage`` runs one stage of ``ddpg.train`` on
+``configs/train_default_1.json``: stage 1 at ``LEARNING_RATE``, stage 2
+as ``ddpg.train`` runs it (``_extended``, ``derive_seed``, a tenth of the
+rate, from stage 1's selection in ``<handoffs>/seed<k>_stage1.npz``, the
+selection carried on), each to ``--frames`` valid frames with a
+2048-episode selection evaluation every 5 rounds.  A stage does not fit a
+run's time limit, so it runs in segments: a segment ends at the start of a
+block of 5 rounds (the previous block's evaluation done) once the next
+block would pass ``--time-limit`` or after ``--handoff-after-blocks``
+blocks, and writes ``<handoffs>/seed<k>_stage<s>_handoff.pt``, everything
+the stage needs to go on bit for bit; the next run with the same arguments
+resumes from it.  Each (seed, stage) appends one record, with its
+segments, when it ends; stage 2 then evaluates the final selection over
+1024 episodes, and the run evaluates ``ddpg_default1_extended`` once
+beside the seeds.  ``--compare --trainer ddpg --stage both`` holds both
+stages by the Rainbow rule, the counts of seeds no worse than
+``ddpg_default1_extended`` to one, and writes "DDPG learning curve, 1e6 +
+1e6 frames" (stage 1 alone, by its own rule, until stage 2 has run).
 """
 
 from __future__ import annotations
@@ -65,22 +91,28 @@ from __future__ import annotations
 import argparse
 import csv
 import fcntl
+import hashlib
 import json
+import lzma
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
+import traceback
 from typing import Dict, List, Optional
+
+import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "scripts"))
 
 from paper_table_torch import (ACCEPTANCE, CURVE_SECTION,  # noqa: E402
-                               RAINBOW_SECTION, card_line, flagged,
-                               put_section)
+                               DDPG_SECTION, RAINBOW_SECTION, card_line,
+                               flagged, put_section)
 
 CONFIG = "configs/train_default_1.json"
 OUT = os.path.join(REPO, "run_data_torch_train.jsonl")
@@ -246,10 +278,11 @@ def _lines(path: str) -> List[dict]:
 
 
 def read_records(path: str) -> Dict[int, dict]:
-    """The newest DDPG record of each seed in a JSONL file (a Rainbow
-    record carries ``"trainer": "rainbow"``)."""
+    """The newest stage-1 DDPG curve record of each seed in a JSONL file (a
+    Rainbow record carries ``"trainer": "rainbow"``, a record of a stage of
+    ``ddpg.train`` its ``"stage"``)."""
     return {int(r["seed"]): r for r in _lines(path)
-            if r.get("trainer", "ddpg") == "ddpg"}
+            if r.get("trainer", "ddpg") == "ddpg" and "stage" not in r}
 
 
 def pending(seeds: List[int], path: str, frames: float) -> List[int]:
@@ -269,15 +302,27 @@ def append_record(path: str, record: dict) -> None:
 
 
 def run_one(seed: int, frames: float, out: str, concurrent: int,
-            rainbow_args: Optional[dict] = None) -> dict:
+            rainbow_args: Optional[dict] = None,
+            ddpg_args: Optional[dict] = None) -> Optional[dict]:
     """One seed on the card (one Rainbow stage where ``rainbow_args``
-    holds ``run_rainbow_stage``'s stage, episodes and snapshots),
-    ``concurrent`` seeds sharing it; appends and returns its record."""
+    holds ``run_rainbow_stage``'s stage, episodes and snapshots; one
+    segment of a DDPG stage where ``ddpg_args`` holds ``run_ddpg_stage``'s
+    stage, episodes, handoffs, deadline and blocks), ``concurrent`` seeds
+    sharing it; appends and returns its record (None where a DDPG segment
+    ended before its stage)."""
     import torch
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // concurrent))
     torch.cuda.reset_peak_memory_stats()
-    record = run_seed(seed, frames) if rainbow_args is None \
-        else run_rainbow_stage(seed, frames, **rainbow_args)
+    if ddpg_args is not None:
+        record = run_ddpg_stage(seed, frames, **ddpg_args)
+        if record is None:
+            print(f"seed {seed}: {card_line()}; max_memory_allocated "
+                  f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
+            return None
+    elif rainbow_args is not None:
+        record = run_rainbow_stage(seed, frames, **rainbow_args)
+    else:
+        record = run_seed(seed, frames)
     record.update(card=card_line(), device=torch.cuda.get_device_name(0),
                   concurrent_seeds=concurrent,
                   max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
@@ -299,9 +344,11 @@ def run_one(seed: int, frames: float, out: str, concurrent: int,
 
 
 def spawn(seeds: List[int], frames: float, out: str,
-          extra: Optional[List[str]] = None, log: str = "train_curve") -> None:
+          extra: Optional[List[str]] = None, log: str = "train_curve",
+          meanwhile=None) -> None:
     """Every seed at once, each in a process of its own (``extra``: more
-    arguments) that logs to ``<log>_seed<seed>.log`` beside ``out``."""
+    arguments) that logs to ``<log>_seed<seed>.log`` beside ``out``;
+    ``meanwhile()``, where given, runs in this process while they do."""
     out_dir = os.path.dirname(os.path.abspath(out))
     procs = []
     try:
@@ -312,6 +359,11 @@ def spawn(seeds: List[int], frames: float, out: str,
                  "--seeds", str(seed), "--frames", str(frames), "--out", out,
                  "--concurrent", str(len(seeds))] + (extra or []),
                 stdout=fh, stderr=subprocess.STDOUT, cwd=REPO)))
+        if meanwhile is not None:
+            try:
+                meanwhile()
+            except Exception:           # the seeds run on regardless
+                traceback.print_exc()
         failed = [seed for seed, _, proc in procs if proc.wait()]
     finally:
         for _, fh, proc in procs:
@@ -325,14 +377,36 @@ def spawn(seeds: List[int], frames: float, out: str,
 
 
 def run(seeds: List[int], frames: float, out: str, concurrent: int,
-        rainbow_args: Optional[dict] = None) -> None:
+        rainbow_args: Optional[dict] = None,
+        ddpg_args: Optional[dict] = None) -> None:
     """The seeds without a record in ``out``: one in this process, several
     at once in processes of their own (``concurrent`` is set in those)."""
     import torch
     if not torch.cuda.is_available():
         raise RuntimeError("--run trains on the card: "
                            "torch.cuda.is_available() is False")
-    if rainbow_args is None:
+    meanwhile = None
+    if ddpg_args is not None:
+        stage = ddpg_args["stage"]
+        todo = pending_stage(seeds, out, frames, stage, "ddpg")
+        if stage == 2:          # refuse before any seed starts
+            for seed in todo:
+                snapshot_path(ddpg_args["resume_from"] or
+                              ddpg_args["handoffs"], seed, check=True)
+            if todo and reference_record(out) is None:
+                def meanwhile():
+                    evaluate_reference(out)
+        extra = ["--trainer", "ddpg", "--stage", str(stage), "--episodes",
+                 str(ddpg_args["eval_episodes"]), "--handoffs",
+                 ddpg_args["handoffs"]]
+        if ddpg_args.get("resume_from") is not None:
+            extra += ["--resume-from", ddpg_args["resume_from"]]
+        if ddpg_args.get("deadline") is not None:
+            extra += ["--deadline", repr(ddpg_args["deadline"])]
+        if ddpg_args.get("blocks") is not None:
+            extra += ["--handoff-after-blocks", str(ddpg_args["blocks"])]
+        log = f"train_curve_ddpg_stage{stage}"
+    elif rainbow_args is None:
         todo, extra, log = pending(seeds, out, frames), [], "train_curve"
     else:
         stage = rainbow_args["stage"]
@@ -347,9 +421,11 @@ def run(seeds: List[int], frames: float, out: str, concurrent: int,
     print(f"{card_line()}; {len(seeds) - len(todo)} of {len(seeds)} seeds "
           f"already in {out}", flush=True)
     if len(todo) > 1:
-        spawn(todo, frames, out, extra, log)
+        spawn(todo, frames, out, extra, log, meanwhile)
     elif todo:
-        run_one(todo[0], frames, out, concurrent, rainbow_args)
+        if meanwhile is not None:
+            meanwhile()
+        run_one(todo[0], frames, out, concurrent, rainbow_args, ddpg_args)
 
 
 # --- Rainbow: TRAIN_DQN's two stages, each in a chip call of its own -------
@@ -368,13 +444,17 @@ RAINBOW_EPISODES = 1024       # each selection evaluation, and the final one
 REFERENCE_LOG_DIR = "rainbow_default1"
 
 
+def stage_lr(cfg, stage: int) -> float:
+    """The learning rate of a stage of ``ddpg.train`` or ``rainbow.train``:
+    ``LEARNING_RATE``, then a tenth of it."""
+    return cfg.LEARNING_RATE if stage == 1 else cfg.LEARNING_RATE / 10.0
+
+
 def stage_schedule(cfg, stage: int, eps_end: float):
     """(lr, eps_start) of a stage of ``rainbow.train``: stage 1 at
     ``LEARNING_RATE`` from epsilon 1, stage 2 at a tenth of it from
     ``EPS_END``."""
-    if stage == 1:
-        return cfg.LEARNING_RATE, 1.0
-    return cfg.LEARNING_RATE / 10.0, eps_end
+    return stage_lr(cfg, stage), 1.0 if stage == 1 else eps_end
 
 
 def rainbow_record(seed: int, stage: int, batch: int, frames_budget: float,
@@ -382,12 +462,26 @@ def rainbow_record(seed: int, stage: int, batch: int, frames_budget: float,
                    frames_after: List[int], eval_seconds: List[float],
                    run: Recorder, best: dict, selected_stage: int,
                    eval_every: int, eval_episodes: int) -> dict:
-    """The fields both sides record for a (seed, stage)."""
+    """The fields both sides record for a Rainbow (seed, stage)."""
+    return {**stage_record("rainbow", RAINBOW_CONFIG, seed, stage, batch,
+                           frames_budget, state, lr, seconds, frames_after,
+                           eval_seconds, run, best, selected_stage,
+                           eval_every, eval_episodes),
+            "eps_start": eps_start}
+
+
+def stage_record(trainer: str, config: str, seed: int, stage: int,
+                 batch: int, frames_budget: float, state, lr: float,
+                 seconds: List[float], frames_after: List[int],
+                 eval_seconds: List[float], run: Recorder, best: dict,
+                 selected_stage: int, eval_every: int, eval_episodes: int
+                 ) -> dict:
+    """The fields both sides record for a (seed, stage) of ``trainer``."""
     return {
-        "trainer": "rainbow", "stage": stage, "seed": seed,
-        "config": RAINBOW_CONFIG, "batch": batch,
+        "trainer": trainer, "stage": stage, "seed": seed,
+        "config": config, "batch": batch,
         "frames_budget": frames_budget, "frames": int(state.frames),
-        "episodes": int(state.episodes), "lr": lr, "eps_start": eps_start,
+        "episodes": int(state.episodes), "lr": lr,
         "rounds": len(seconds), "s_per_round": seconds,
         # the first round compiles (JAX) or warms the caches (the card)
         "s_per_round_median": statistics.median(seconds[1:] or seconds),
@@ -414,15 +508,16 @@ def snapshot_path(snapshots: str, seed: int, check: bool = False) -> str:
     return path
 
 
-def save_stage1(path: str, state_dict: dict, best: dict) -> None:
-    """Stage 1's selected ``state_dict`` under ``q_dist/<layer>/<leaf>``
-    (the Flax layout of ``convert.tree_from_state_dict``), with the
-    selection's score and frames under ``best/``."""
-    import numpy as np
+def save_selection(path: str, nets: Dict[str, dict], best: dict) -> None:
+    """A stage's selected ``state_dict`` of each net under
+    ``<net>/<layer>/<leaf>`` (the Flax layout of
+    ``convert.tree_from_state_dict``), with the selection's score and
+    frames under ``best/``."""
     from rl_mpc_lanemerging_torch import convert
-    tree = convert.tree_from_state_dict(state_dict)["params"]
-    arrays = {f"q_dist/{layer}/{leaf}": value
-              for layer, leaves in tree.items()
+    arrays = {f"{net}/{layer}/{leaf}": value
+              for net, state_dict in nets.items()
+              for layer, leaves in convert.tree_from_state_dict(
+                  state_dict)["params"].items()
               for leaf, value in leaves.items()}
     if best.get("score") is not None:
         arrays["best/score"] = np.asarray(best["score"], dtype=np.float64)
@@ -433,23 +528,36 @@ def save_stage1(path: str, state_dict: dict, best: dict) -> None:
     os.replace(tmp, path)
 
 
+def load_selection(path: str):
+    """(each net's Flax parameter tree, the selection's score and frames)
+    of ``save_selection``'s file."""
+    trees: Dict[str, dict] = {}
+    best: dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            net, layer, leaf = key.split("/") if key.count("/") == 2 \
+                else (None, None, None)
+            if net is not None:
+                trees.setdefault(net, {}).setdefault(layer, {})[leaf] = \
+                    data[key]
+        if "best/score" in data.files:
+            best = {"score": tuple(float(x) for x in data["best/score"]),
+                    "frames": int(data["best/frames"])}
+    return {net: {"params": tree} for net, tree in trees.items()}, best
+
+
+def save_stage1(path: str, state_dict: dict, best: dict) -> None:
+    """Stage 1's selected Rainbow ``state_dict`` under ``q_dist/``."""
+    save_selection(path, {"q_dist": state_dict}, best)
+
+
 def load_stage1(path: str):
     """(``state_dict``, ``best``) of ``save_stage1``'s file: the selected
     snapshot through ``convert.rainbow_from_numpy``, and the selection
     that stage 2 carries on, whose ``params`` is that snapshot."""
-    import numpy as np
     from rl_mpc_lanemerging_torch import convert
-    params: Dict[str, dict] = {}
-    best: dict = {}
-    with np.load(path) as data:
-        for key in data.files:
-            if key.startswith("q_dist/"):
-                _, layer, leaf = key.split("/")
-                params.setdefault(layer, {})[leaf] = data[key]
-        if "best/score" in data.files:
-            best = {"score": tuple(float(x) for x in data["best/score"]),
-                    "frames": int(data["best/frames"])}
-    init = convert.rainbow_from_numpy({"params": params})
+    trees, best = load_selection(path)
+    init = convert.rainbow_from_numpy(trees["q_dist"])
     if best:
         best["params"] = init
     return init, best
@@ -529,19 +637,637 @@ def run_rainbow_stage(seed: int, frames: float, stage: int = 1,
             "k1_launches": st_kernel.launches, "torch": torch.__version__}
 
 
-def read_stages(records: List[dict]) -> Dict[tuple, dict]:
-    """The newest Rainbow record of each (seed, stage)."""
+def read_stages(records: List[dict], trainer: str = "rainbow"
+                ) -> Dict[tuple, dict]:
+    """The newest record of each (seed, stage) of ``trainer``."""
     return {(int(r["seed"]), int(r["stage"])): r for r in records
-            if r.get("trainer") == "rainbow"}
+            if r.get("trainer") == trainer and "stage" in r}
 
 
 def pending_stage(seeds: List[int], path: str, frames: float,
-                  stage: int) -> List[int]:
-    """The seeds without a Rainbow record of ``stage`` in ``path`` at a
-    budget of ``frames``."""
-    done = read_stages(_lines(path))
+                  stage: int, trainer: str = "rainbow") -> List[int]:
+    """The seeds without a record of ``stage`` of ``trainer`` in ``path``
+    at a budget of ``frames``."""
+    done = read_stages(_lines(path), trainer)
     return [s for s in seeds if (s, stage) not in done
             or done[(s, stage)]["frames_budget"] < frames]
+
+
+# --- DDPG: TRAIN_DDPG's two stages, each carried across runs by handoffs -
+
+DDPG_YARDSTICKS = os.path.join(REPO, "scripts", "jax_ddpg_yardsticks.json")
+DDPG_FRAMES = 1e6             # valid frames per stage, as ddpg.train
+HANDOFFS = os.path.join(REPO, "runs_torch", "curve_ddpg")
+DDPG_LOGGED = (LOGGED, os.path.join(REPO, "runs", "ddpg_default1_extended"))
+# the network of the paper's combined rows, evaluated beside the seeds
+DDPG_REFERENCE = "ddpg_default1_extended"
+LOG_BLOCK = 5                 # _train_frames logs every 5th round
+HANDOFF_RESERVE_S = 90.0      # a segment's save, beyond its last block
+# the handoff's replay streams: 4-byte words, compressed byte plane by plane
+_WORD = np.dtype("<u4")
+
+
+class SegmentEnd(Exception):
+    """Ends a segment at the start of a block of rounds: the run's time
+    limit would not hold the block, or the segment has run its blocks."""
+
+
+def handoff_path(handoffs: str, seed: int, stage: int, segment: int) -> str:
+    """The handoff that ends ``segment`` (1, 2, ...) of a seed's stage."""
+    return os.path.join(handoffs,
+                        f"seed{seed}_stage{stage}_handoff{segment}.pt")
+
+
+def handoff_files(folder: str, seed: int, stage: int) -> List[str]:
+    """A seed's handoffs of a stage in ``folder`` (each with its ``.json``
+    beside it), the last segment's last."""
+    pattern = re.compile(rf"seed{seed}_stage{stage}_handoff(\d+)\.pt$")
+    found = [(int(m.group(1)), name) for name in (
+        os.listdir(folder) if os.path.isdir(folder) else [])
+        for m in [pattern.match(name)] if m]
+    return [os.path.join(folder, name) for _, name in sorted(found)]
+
+
+def _planes(words) -> bytes:
+    """The bytes of 4-byte words, byte plane by byte plane, compressed."""
+    words = np.ascontiguousarray(words, dtype=_WORD)
+    return lzma.compress(np.ascontiguousarray(
+        words.view(np.uint8).reshape(-1, 4).T).tobytes())
+
+
+def _words(blob, count: int):
+    planes = np.frombuffer(lzma.decompress(bytes(blob)), np.uint8)
+    return np.ascontiguousarray(planes.reshape(4, count).T).view(
+        _WORD).reshape(count)
+
+
+def _successors(obs, next_obs):
+    """For each row, the first row whose observation equals its next
+    observation bit for bit, or -1."""
+    first: Dict[bytes, int] = {}
+    for i, row in enumerate(obs):
+        first.setdefault(row.tobytes(), i)
+    return np.fromiter((first.get(row.tobytes(), -1) for row in next_obs),
+                       np.int64, len(next_obs))
+
+
+def _chain_order(succ):
+    """The rows chain by chain (row, its successor, ...), heads first: an
+    order in which one scenario's observations follow each other."""
+    n = len(succ)
+    nxt = succ.tolist()
+    headed = np.ones(n, bool)
+    headed[succ[succ >= 0]] = False
+    seen = bytearray(n)
+    order: List[int] = []
+    for start in np.flatnonzero(headed).tolist() + list(range(n)):
+        i = start
+        while i >= 0 and not seen[i]:
+            seen[i] = 1
+            order.append(i)
+            i = nxt[i]
+    return np.asarray(order, np.int64)
+
+
+RING = ("obs", "next_obs", "action", "reward", "terminal", "discount",
+        "priority")
+
+
+def ring_arrays(replay) -> dict:
+    """The replay ring's buffers, every row (the scratch row too), as
+    numpy arrays on the host."""
+    return {name: getattr(replay, name).cpu().numpy() for name in RING}
+
+
+def _digest(arrays: dict) -> str:
+    h = hashlib.sha256()
+    for name in RING:
+        h.update(np.ascontiguousarray(arrays[name]).view(np.uint8).data)
+    return h.hexdigest()
+
+
+def _blob(data: bytes):
+    import torch
+    return torch.frombuffer(bytearray(data), dtype=torch.uint8)
+
+
+def _pack_rows(arrays: dict) -> dict:
+    """Rows of the ring, losslessly, in about a sixth of their bytes: each
+    next observation that is another row's observation as that row's
+    offset, the observations chain by chain as differences of their bit
+    patterns, and every stream compressed byte plane by byte plane."""
+    obs, nxt = arrays["obs"], arrays["next_obs"]
+    n, dim = obs.shape
+    succ = _successors(obs, nxt)
+    order = _chain_order(succ)
+    cols = obs.view(_WORD)[order].T.copy()          # (dim, n) chain order
+    cols[:, 1:] -= cols[:, :-1].copy()
+    offsets = np.where(succ >= 0, succ - np.arange(n), -2 ** 31)
+    packed = {"rows": n, "dim": dim,
+              "dtypes": {k: str(v.dtype) for k, v in arrays.items()},
+              "obs": _blob(_planes(cols.reshape(-1))),
+              "offsets": _blob(_planes(offsets.astype(np.int32)
+                                       .view(_WORD))),
+              "orphans": _blob(_planes(nxt[succ < 0].view(_WORD)
+                                       .reshape(-1))),
+              "terminal": _blob(lzma.compress(
+                  arrays["terminal"].view(np.uint8).tobytes()))}
+    for name in ("action", "reward", "discount", "priority"):
+        packed[name] = _blob(_planes(arrays[name].view(_WORD)))
+    return packed
+
+
+def _unpack_rows(packed: dict) -> dict:
+    n, dim = packed["rows"], packed["dim"]
+    dt = {k: np.dtype(v) for k, v in packed["dtypes"].items()}
+    offsets = _words(packed["offsets"].numpy(), n).view(np.int32)
+    succ = np.where(offsets == -2 ** 31, -1,
+                    np.arange(n) + offsets.astype(np.int64))
+    order = _chain_order(succ)
+    cols = np.cumsum(_words(packed["obs"].numpy(), n * dim).reshape(dim, n),
+                     axis=1, dtype=_WORD)
+    obs = np.empty((n, dim), _WORD)
+    obs[order] = cols.T
+    obs = obs.view(dt["obs"])
+    nxt = obs[np.maximum(succ, 0)].copy()
+    orphans = succ < 0
+    nxt[orphans] = _words(packed["orphans"].numpy(),
+                          int(orphans.sum()) * dim).view(
+        dt["next_obs"]).reshape(-1, dim)
+    out = {"obs": obs, "next_obs": nxt,
+           "terminal": np.frombuffer(lzma.decompress(bytes(
+               packed["terminal"].numpy())), np.uint8).view(
+               dt["terminal"]).copy()}
+    for name in ("action", "reward", "discount", "priority"):
+        out[name] = _words(packed[name].numpy(), n).view(dt[name]).copy()
+    return out
+
+
+def pack_replay(replay, base: Optional[dict] = None) -> dict:
+    """The replay ring, losslessly (``_pack_rows``).  With ``base``
+    (``{"name": a handoff file, "ring": its ring_arrays}``, the ring this
+    segment resumed from) only the rows that differ from it, so that a
+    handoff written after fewer new rows than the ring holds is smaller.
+    Checked: unpacked, it equals the ring bit for bit."""
+    arrays = ring_arrays(replay)
+    packed = {"pos": int(replay.pos), "size": int(replay.size),
+              "digest": _digest(arrays)}
+    if base is None:
+        packed.update(_pack_rows(arrays))
+    else:
+        old = base["ring"]
+        changed = np.zeros(len(arrays["priority"]), bool)
+        for name in RING:
+            a, b = arrays[name], old[name]
+            changed |= (a.view(np.uint8).reshape(len(a), -1)
+                        != b.view(np.uint8).reshape(len(b), -1)).any(axis=1)
+        rows = np.flatnonzero(changed)
+        packed.update(base=base["name"], base_digest=_digest(old),
+                      changed=_blob(_planes(rows.astype(np.uint32))),
+                      **_pack_rows({k: v[rows] for k, v in arrays.items()}))
+    unpack_arrays(packed, None if base is None else base["ring"])
+    return packed
+
+
+def unpack_arrays(packed: dict, base: Optional[dict] = None) -> dict:
+    """``pack_replay``'s ring as numpy arrays (``base``: the ring_arrays
+    of the handoff a packed delta names).  Raises unless they are the ring
+    it was packed from, bit for bit."""
+    rows = _unpack_rows(packed)
+    if "base" in packed:
+        if base is None or _digest(base) != packed["base_digest"]:
+            raise ValueError(f"the ring of {packed['base']} is not the one "
+                             "this handoff was written against")
+        index = _words(packed["changed"].numpy(), packed["rows"]).astype(
+            np.int64)
+        out = {k: v.copy() for k, v in base.items()}
+        for k in RING:
+            out[k][index] = rows[k]
+    else:
+        out = rows
+    if packed.get("digest", _digest(out)) != _digest(out):
+        raise ValueError("a packed replay ring does not unpack to the ring "
+                         "it was written from")
+    return out
+
+
+def replay_like(arrays: dict, packed: dict, like):
+    """A ``Replay`` of copies of ``arrays`` and ``packed``'s cursor and
+    size on the device of ``like`` (``arrays`` stay as they are: the
+    next handoff's base)."""
+    import torch
+    dev = like.obs.device
+    return like._replace(
+        **{name: torch.from_numpy(arrays[name]).to(dev, copy=True)
+           for name in RING},
+        pos=torch.tensor(packed["pos"], dtype=like.pos.dtype, device=dev),
+        size=torch.tensor(packed["size"], dtype=like.size.dtype,
+                          device=dev))
+
+
+def _to_host(tree):
+    """Nested dicts, lists and tuples of tensors with every tensor on the
+    CPU (a named tuple becomes a dict of its fields)."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return {k: _to_host(v) for k, v in zip(tree._fields, tree)}
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    return tree
+
+
+def _like(template, saved):
+    """``saved`` (``_to_host``'s form of a named tuple of tensors) in the
+    named tuple type, dtypes and devices of ``template``."""
+    import torch
+    if isinstance(template, torch.Tensor):
+        if saved.shape != template.shape or saved.dtype != template.dtype:
+            raise ValueError(f"a handoff tensor is {saved.dtype} "
+                             f"{tuple(saved.shape)}, the state's "
+                             f"{template.dtype} {tuple(template.shape)}")
+        return saved.to(template.device)
+    return type(template)(**{k: _like(v, saved[k]) for k, v in
+                             zip(template._fields, template)})
+
+
+def _squeeze(tree):
+    """``tree`` with each float32 tensor of more than 256 values as its
+    ``_planes`` and shape (networks and moments: about three quarters of
+    their bytes); ``_unsqueeze`` undoes it."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        if tree.dtype != torch.float32 or tree.numel() <= 256:
+            return tree
+        blob = _planes(tree.numpy().reshape(-1).view(_WORD))
+        return {"planes": torch.frombuffer(bytearray(blob),
+                                           dtype=torch.uint8),
+                "shape": list(tree.shape)}
+    if isinstance(tree, dict):
+        return {k: _squeeze(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_squeeze(v) for v in tree)
+    return tree
+
+
+def _unsqueeze(tree):
+    import torch
+    if isinstance(tree, dict):
+        if tree.keys() == {"planes", "shape"}:
+            count = math.prod(tree["shape"])
+            return torch.from_numpy(_words(tree["planes"].numpy(), count)
+                                    .view(np.float32).reshape(
+                                        tree["shape"]).copy())
+        return {k: _unsqueeze(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_unsqueeze(v) for v in tree)
+    return tree
+
+
+def train_state_tree(state) -> dict:
+    """Everything of a ``DDPGTrainState`` that a handoff carries, on the
+    CPU, the replay as it stands (``world_rng`` is rebuilt from the
+    config)."""
+    return {
+        "nets": {name: _to_host(getattr(state, name).state_dict())
+                 for name in ("actor", "critic", "target_actor",
+                              "target_critic")},
+        "opts": {name: _to_host(getattr(state, name).state_dict())
+                 for name in ("actor_opt", "critic_opt")},
+        "replay": _to_host(state.replay), "env": _to_host(state.env),
+        "draws": state.draws.generator.get_state().clone(),
+        "counters": {name: _to_host(getattr(state, name)) for name in
+                     ("episodes", "frames", "ret_acc", "ep_ret_sum",
+                      "ep_ret_n")},
+        "learning": bool(state.learning), "updates": int(state.updates)}
+
+
+def handoff_key(seed: int, stage: int, batch: int, frames_budget: float,
+                eval_every: int, eval_episodes: int, overrides=None) -> dict:
+    """What a handoff was written for; a load refuses any other."""
+    return {"config": CONFIG, "seed": seed, "stage": stage, "batch": batch,
+            "frames_budget": float(frames_budget), "eval_every": eval_every,
+            "eval_episodes": eval_episodes,
+            "overrides": json.dumps(overrides or {}, sort_keys=True)}
+
+
+def save_handoff(path: str, state, key: dict, extra: dict,
+                 base: Optional[dict] = None) -> tuple:
+    """Write ``state`` (its ring packed, as a delta against ``base`` where
+    given: see ``pack_replay``), ``key`` and ``extra`` to ``path`` through
+    a temporary file, so that a run cut mid-write leaves the previous file
+    whole; returns (seconds, bytes)."""
+    import torch
+    t0 = time.perf_counter()
+    tree = train_state_tree(state)
+    replay = pack_replay(state.replay, base)
+    tree = _squeeze({**tree, "replay": None})
+    tree["replay"] = replay
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save({"key": key, "state": tree, **_squeeze(extra)}, tmp)
+    os.replace(tmp, path)
+    return time.perf_counter() - t0, os.path.getsize(path)
+
+
+def _read(path: str, key: dict) -> dict:
+    import torch
+    data = torch.load(path, map_location="cpu", weights_only=True)
+    if data["key"] != key:
+        raise ValueError(f"{path} was written for {data['key']}, not for "
+                         f"{key}")
+    return data
+
+
+def load_handoff(path: str, state, key: dict) -> dict:
+    """Overwrite ``state`` (a fresh ``ddpg.make_train_state`` of the same
+    config) from ``save_handoff``'s file (a delta with the file it names,
+    beside it); returns the file's other fields, and under ``ring`` the
+    loaded ring as a ``base`` for ``save_handoff`` (None where the file
+    was a delta).  Raises where a file was written for another ``key``."""
+    data = _read(path, key)
+    tree = data.pop("state")
+    replay = tree.pop("replay")
+    older = None
+    if "base" in replay:
+        older = _read(os.path.join(os.path.dirname(path), replay["base"]),
+                      key)["state"]["replay"]
+        older = unpack_arrays(older)
+    ring = unpack_arrays(replay, older)
+    tree, data = _unsqueeze(tree), _unsqueeze(data)
+    for name, sd in tree["nets"].items():
+        getattr(state, name).load_state_dict(sd)
+    for name, sd in tree["opts"].items():
+        getattr(state, name).load_state_dict(sd)
+    state.replay = replay_like(ring, replay, state.replay)
+    state.env = _like(state.env, tree["env"])
+    state.draws.generator.set_state(tree["draws"])
+    for name, value in tree["counters"].items():
+        setattr(state, name, _like(getattr(state, name), value))
+    state.learning, state.updates = tree["learning"], tree["updates"]
+    data["ring"] = None if older is not None else {
+        "name": os.path.basename(path), "ring": ring}
+    return data
+
+
+def _host_best(best: dict) -> dict:
+    out = {k: v for k, v in best.items() if k != "params"}
+    if "score" in out:
+        out["score"] = [float(x) for x in out["score"]]
+    if best.get("params") is not None:
+        out["params"] = [_to_host(p) for p in best["params"]]
+    return out
+
+
+def _device_best(saved: dict, dev) -> dict:
+    best = dict(saved)
+    if "score" in best:
+        best["score"] = tuple(best["score"])
+    if "params" in best:
+        best["params"] = tuple({k: v.to(dev) for k, v in p.items()}
+                               for p in best["params"])
+    return best
+
+
+def _ddpg_selection(path: str):
+    """(init, best) of stage 1's selection: (actor, critic)
+    ``state_dict``s, and the selection stage 2 carries on, whose
+    ``params`` is ``init``."""
+    from rl_mpc_lanemerging_torch import convert
+    trees, best = load_selection(path)
+    init = (convert.ddpg_actor_from_numpy(trees["actor"]),
+            convert.ddpg_critic_from_numpy(trees["critic"]))
+    if best:
+        best["params"] = init
+    return init, best
+
+
+def segment_guard(module, seconds: List[float], eval_seconds: List[float],
+                  block: int, deadline: Optional[float],
+                  blocks: Optional[int], clock=time.time):
+    """Wrap ``module.train_round`` so that, at the start of a block of
+    ``block`` rounds after at least one block of this segment, it raises
+    ``SegmentEnd`` where ``blocks`` blocks have run or where the clock
+    would pass ``deadline`` before the block, its evaluation, one more
+    evaluation (the stage's last) and the save are done; returns the
+    function that puts the real one back."""
+    real = module.train_round
+    start = len(seconds)
+
+    def guarded(*a, **kw):
+        done_here = len(seconds) - start
+        if done_here and len(seconds) % block == 0:
+            if blocks is not None and done_here >= blocks * block:
+                raise SegmentEnd(f"{blocks} blocks run")
+            if deadline is not None:
+                last_eval = max(eval_seconds[-1:] or [0.0])
+                need = block * max(seconds[-block:]) + 2 * last_eval \
+                    + HANDOFF_RESERVE_S
+                if clock() + need > deadline:
+                    raise SegmentEnd("the next block would pass the run's "
+                                     "time limit")
+        return real(*a, **kw)
+
+    module.train_round = guarded
+
+    def restore():
+        module.train_round = real
+    return restore
+
+
+def run_ddpg_stage(seed: int, frames: float, stage: int = 1,
+                   batch: int = BATCH, eval_every: int = EVAL_EVERY,
+                   eval_episodes: int = EVAL_EPISODES,
+                   final_episodes: int = FINAL_EPISODES,
+                   handoffs: str = HANDOFFS, device="cuda", overrides=None,
+                   deadline: Optional[float] = None,
+                   blocks: Optional[int] = None,
+                   resume_from: Optional[str] = None) -> Optional[dict]:
+    """One segment of a stage of ``ddpg.train`` for one seed on
+    ``device``: stage 1 at ``LEARNING_RATE`` from the seed's networks,
+    stage 2 as ``ddpg.train`` runs it (``LOG_DIR`` + ``_extended``, fresh
+    worlds, ``derive_seed``, a tenth of the rate, stage 1's selection as
+    its start and its best so far), each to ``frames`` valid frames with an
+    ``eval_episodes``-episode selection evaluation every ``eval_every``
+    rounds.  A seed with a handoff in ``resume_from`` (``handoffs`` by
+    default; stage 2 finds stage 1's selection there too) resumes from its
+    last.  The segment ends at a block boundary (``segment_guard``:
+    ``deadline``, on the ``time.time`` clock, or ``blocks``); it then
+    writes its handoff to ``handoffs`` (a delta against the one it resumed
+    from, where that was whole: the two must travel together) and returns
+    None.  At the stage's end, stage 1 writes its selection to
+    ``snapshot_path(handoffs)``, stage 2 evaluates the final selection over
+    ``final_episodes`` episodes; the handoff files go, and the (seed,
+    stage) record (without the card's fields) is returned."""
+    import torch
+    from rl_mpc_lanemerging_torch import tasks
+    from rl_mpc_lanemerging_torch._device import (pin_fp32_matmul,
+                                                  resolve_device)
+    from rl_mpc_lanemerging_torch.agents import ddpg
+    from rl_mpc_lanemerging_torch.ops import st_kernel
+    dev = resolve_device(device)
+    pin_fp32_matmul()
+    cfg = seed_config(seed, batch, overrides)
+    lr = stage_lr(cfg, stage)
+    key = handoff_key(seed, stage, batch, frames, eval_every, eval_episodes,
+                      overrides)
+    resume_from = resume_from or handoffs
+    init, best = _ddpg_selection(snapshot_path(resume_from, seed,
+                                               check=True)) \
+        if stage == 2 else (None, {})
+    scfg = cfg if stage == 1 else cfg.replace(
+        LOG_DIR=cfg.LOG_DIR + "_extended")
+    seed0 = tasks.seed_of(cfg)
+    st_kernel.launches = 0
+    t0 = time.perf_counter()
+    worlds, world_rng = tasks.make_worlds(scfg, device=dev)
+    state = ddpg.make_train_state(
+        scfg, worlds, world_rng,
+        seed0 if stage == 1 else ddpg.derive_seed(seed0), lr=lr,
+        init_params=init)
+    found = handoff_files(resume_from, seed, stage)
+    run = Recorder()
+    saved = {"frames0": int(state.frames), "seconds": [], "frames_after": [],
+             "eval_seconds": [], "segments": [], "ring": None}
+    load_s = None
+    if found:
+        t1 = time.perf_counter()
+        saved = load_handoff(found[-1], state, key)
+        load_s = time.perf_counter() - t1
+        if os.path.exists(found[-1] + ".json"):
+            with open(found[-1] + ".json") as fh:
+                saved["segments"][-1].update(json.load(fh))
+        run.rows = saved["rows"]
+        best = _device_best(saved["best"], dev)
+        if best.get("selected_stage1"):       # stage 1's snapshot, as init
+            best.pop("selected_stage1")
+            init = best["params"]
+
+    def sync(out):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return out
+
+    frames_after = list(saved["frames_after"])
+    seconds, restore = timed_rounds(ddpg, sync, frames=frames_after)
+    seconds.extend(saved["seconds"])
+    eval_seconds, restore_eval = timed_rounds(ddpg, sync, "_eval_actor")
+    eval_seconds.extend(saved["eval_seconds"])
+    restore_guard = segment_guard(ddpg, seconds, eval_seconds,
+                                  math.lcm(LOG_BLOCK, eval_every), deadline,
+                                  blocks)
+    frames0 = saved["frames0"]
+    left = frames - (int(state.frames) - frames0)
+    segment = {"rounds_from": len(seconds), "load_s": load_s}
+    try:
+        state = ddpg._train_frames(scfg, state, left, lr, verbose=True,
+                                   run=run, eval_every_rounds=eval_every,
+                                   eval_episodes=eval_episodes, best=best)
+        ended = None
+    except SegmentEnd as stop:
+        ended = str(stop)
+    finally:
+        restore_guard()
+        restore_eval()
+        restore()
+    segment.update(rounds_to=len(seconds), frames=int(state.frames),
+                   wall_s=time.perf_counter() - t0,
+                   k1_launches=st_kernel.launches)
+    segments = saved["segments"] + [segment]
+    if ended is not None:
+        host_best = _host_best(best)
+        if stage == 2 and best.get("params") is init:
+            host_best["selected_stage1"] = True
+        segment["ended"] = ended
+        path = handoff_path(handoffs, seed, stage, len(segments))
+        save_s, size = save_handoff(path, state, key, {
+            "frames0": frames0, "seconds": seconds,
+            "frames_after": frames_after, "eval_seconds": eval_seconds,
+            "rows": run.rows, "best": host_best, "segments": segments},
+            saved["ring"])
+        with open(path + ".json", "w") as fh:      # the save, measured
+            json.dump({"save_s": save_s, "handoff_bytes": size}, fh)
+        print(f"seed {seed} stage {stage}: segment {len(segments)} ended "
+              f"after {len(seconds)} rounds at {int(state.frames)} frames "
+              f"({ended}); handoff {size} bytes in {save_s:.2f} s; K1 "
+              f"launches {st_kernel.launches}", flush=True)
+        return None
+    train_s = sum(s["wall_s"] for s in segments)
+    selected = best.get("params") or ddpg._snapshot(state.actor,
+                                                    state.critic)
+    record = stage_record(
+        "ddpg", CONFIG, seed, stage, batch, frames, state, lr, seconds,
+        frames_after, eval_seconds, run, best,
+        1 if stage == 1 or selected is init else 2, eval_every,
+        eval_episodes)
+    if stage == 1:
+        save_selection(snapshot_path(handoffs, seed),
+                       {"actor": selected[0], "critic": selected[1]}, best)
+    else:
+        t1 = time.perf_counter()
+        actor = ddpg._actor_from(cfg, selected[0], dev)
+        agg = tasks.evaluate_controller(cfg, ddpg.actor_controller(
+            actor, cfg), num_episodes=final_episodes, device=dev,
+            verbose=False)
+        record.update(final=final_stats(agg, final_episodes),
+                      final_s=time.perf_counter() - t1)
+    for done in found + handoff_files(handoffs, seed, stage):
+        for name in (done, done + ".json"):
+            if os.path.exists(name):
+                os.remove(name)
+    segment["wall_s"] = time.perf_counter() - t0
+    return {**record, "segments": segments, "train_s": train_s,
+            "wall_s": sum(s["wall_s"] for s in segments),
+            "k1_launches": sum(s.get("k1_launches") or 0 for s in segments),
+            "torch": torch.__version__}
+
+
+def reference_record(out: str) -> Optional[dict]:
+    """The newest evaluation of ``DDPG_REFERENCE`` in ``out``."""
+    found = [r for r in _lines(out) if r.get("trainer") == "reference"
+             and r.get("network") == DDPG_REFERENCE]
+    return found[-1] if found else None
+
+
+def evaluate_reference(out: str, episodes: int = FINAL_EPISODES,
+                       batch: int = BATCH, device="cuda",
+                       overrides=None) -> dict:
+    """The committed ``DDPG_REFERENCE`` actor over the final evaluation's
+    ``episodes`` episodes of ``CONFIG`` at its own ``SEED`` (those of seed
+    0), as a record of ``"trainer": "reference"`` appended to ``out``."""
+    import torch
+    from rl_mpc_lanemerging_torch import tasks
+    from rl_mpc_lanemerging_torch._device import resolve_device
+    from rl_mpc_lanemerging_torch.agents import ddpg
+    from rl_mpc_lanemerging_torch.checkpoint import load_actor
+    dev = resolve_device(device)
+    from rl_mpc_lanemerging_torch.config import Settings
+    own_seed = tasks.seed_of(Settings.load_from_file(os.path.join(REPO,
+                                                                  CONFIG)))
+    cfg = seed_config(own_seed, batch, overrides)
+    t0 = time.perf_counter()
+    actor = load_actor(DDPG_REFERENCE, dev, cfg.MINIMUM_NEGATIVE_JERK,
+                       cfg.MAXIMUM_POSITIVE_JERK, committed=True)
+    agg = tasks.evaluate_controller(cfg, ddpg.actor_controller(actor, cfg),
+                                    num_episodes=episodes, device=dev,
+                                    verbose=False)
+    record = {"trainer": "reference", "network": DDPG_REFERENCE,
+              "config": CONFIG, "seed": cfg.SEED, "batch": batch,
+              "final": final_stats(agg, episodes),
+              "final_s": time.perf_counter() - t0,
+              "torch": torch.__version__}
+    if dev.type == "cuda":
+        record.update(card=card_line(),
+                      device=torch.cuda.get_device_name(0))
+    append_record(out, record)
+    f = record["final"]
+    print(f"{DDPG_REFERENCE}: crash {f['crash']:.4f} merge {f['merge']:.4f} "
+          f"|jerk| {f['jerk']:.4f} over {episodes} episodes in "
+          f"{record['final_s']:.2f} s", flush=True)
+    return record
 
 
 # --- the comparison --------------------------------------------------------
@@ -582,30 +1308,38 @@ def _reached(record: dict) -> bool:
     return any(_learned(e) for e in record["evals"])
 
 
-def decide(port: dict, jax: dict):
-    """The rule's rows (quantity, port, JAX, |difference|, 3 SEM of it,
-    holds) and its verdict."""
+def _rule(port: dict, jax: dict, metrics, count: str):
+    """A rule's rows (quantity, port, JAX, |difference|, 3 SEM of it,
+    holds) over ``metrics`` (name, label), whether the seed counts under
+    ``count`` differ by one at most, and its verdict."""
     rows = []
-    for name, label in FINAL_METRICS + (("reach_frames",
-                                         "frames to crash <= 0.005 and "
-                                         "merge >= 0.995"),):
+    for name, label in metrics:
         (pm, ps), (jm, js) = port[name], jax[name]
         rows.append((label, port[name], jax[name], abs(pm - jm),
                      3.0 * math.sqrt(ps ** 2 + js ** 2),
                      not flagged(pm, ps, jm, js)))
-    counts_hold = abs(port["reached"] - jax["reached"]) <= 1
+    counts_hold = abs(port[count] - jax[count]) <= 1
     agrees = all(r[-1] for r in rows) and counts_hold
     return rows, counts_hold, "agrees" if agrees else "differs"
 
 
-def logged_runs(folder: str = LOGGED) -> Dict[str, List[dict]]:
+def decide(port: dict, jax: dict):
+    """The 4e5-frame curve's rule (``_rule``)."""
+    return _rule(port, jax, FINAL_METRICS + (
+        ("reach_frames", "frames to crash <= 0.005 and merge >= 0.995"),),
+        "reached")
+
+
+def logged_runs(folder: str = LOGGED, lr: str = "0.0002"
+                ) -> Dict[str, List[dict]]:
     """The JAX package's own selection evaluations, logged on the TPU in
-    ``runs/ddpg_default1``: ``scalars.1.csv`` holds two runs (A, then B,
-    where the frames start again), ``scalars.csv`` a third (C;
-    ``scalars.2.csv`` is C without the time to merge).  Under the progress
-    header (step, avg_return, episodes, lr) an evaluation row is (step,
-    crash, |jerk|, merge[, time to merge]); a progress row has the learning
-    rate, 0.0002, as its fourth value."""
+    ``runs/ddpg_default1`` (stage 2: ``runs/ddpg_default1_extended``, lr
+    "2e-05"): ``scalars.1.csv`` holds two runs (A, then B, where the
+    frames start again), ``scalars.csv`` a third (C; ``scalars.2.csv`` is C
+    without the time to merge).  Under the progress header (step,
+    avg_return, episodes, lr) an evaluation row is (step, crash, |jerk|,
+    merge[, time to merge]); a progress row has the learning rate ``lr``
+    as its fourth value."""
     runs: Dict[str, List[dict]] = {}
     for fname, names in (("scalars.1.csv", "AB"), ("scalars.csv", "C")):
         with open(os.path.join(folder, fname), newline="") as fh:
@@ -616,7 +1350,7 @@ def logged_runs(folder: str = LOGGED) -> Dict[str, List[dict]]:
             if step < last:
                 block += 1
             last = step
-            if row[3] == "0.0002":
+            if row[3] == lr:
                 continue
             runs.setdefault(names[block], []).append({
                 "frames": step, "crash": float(row[1]),
@@ -792,17 +1526,8 @@ def summarize_rainbow(seeds: Dict[int, tuple], reference: float) -> dict:
 
 
 def decide_rainbow(port: dict, jax: dict):
-    """The rule's rows (quantity, port, JAX, |difference|, 3 SEM of it,
-    holds) and its verdict."""
-    rows = []
-    for name, label in RAINBOW_METRICS:
-        (pm, ps), (jm, js) = port[name], jax[name]
-        rows.append((label, port[name], jax[name], abs(pm - jm),
-                     3.0 * math.sqrt(ps ** 2 + js ** 2),
-                     not flagged(pm, ps, jm, js)))
-    counts_hold = abs(port["no_worse"] - jax["no_worse"]) <= 1
-    agrees = all(r[-1] for r in rows) and counts_hold
-    return rows, counts_hold, "agrees" if agrees else "differs"
+    """The two-stage rule (``_rule``), of Rainbow and of DDPG."""
+    return _rule(port, jax, RAINBOW_METRICS, "no_worse")
 
 
 def logged_rainbow(folders=RAINBOW_LOGGED) -> Dict[str, List[dict]]:
@@ -820,6 +1545,23 @@ def logged_rainbow(folders=RAINBOW_LOGGED) -> Dict[str, List[dict]]:
                          for row in list(csv.reader(fh))[1:]
                          if len(row) == 5]
     return out
+
+
+def _stage_evals(port: Dict[int, tuple], jax: Dict[int, tuple]
+                 ) -> List[str]:
+    """The table of every selection evaluation of both sides' stages."""
+    lines = ["| side | seed | stage | frames | crash | merge | mean abs jerk "
+             "| time to merge (s) |", "| --- " * 8 + "|"]
+    for side, recs in (("port (card)", port), ("JAX (CPU)", jax)):
+        for seed in sorted(recs):
+            for r in recs[seed]:
+                for e in r["evals"]:
+                    t = "-" if e["t_merge"] is None else f"{e['t_merge']:.2f}"
+                    lines.append(
+                        f"| {side} | {seed} | {r['stage']} | {e['frames']} "
+                        f"| {e['crash']:.4f} | {e['merge']:.4f} | "
+                        f"{e['jerk']:.4f} | {t} |")
+    return lines
 
 
 def _where(r: dict) -> str:
@@ -854,18 +1596,7 @@ def section_rainbow(port: Dict[int, tuple], jax: Dict[int, tuple],
         "final selected snapshot is evaluated over "
         f"{s2['final']['episodes']} episodes as EVALUATE_DQN does. Seeds: "
         f"port {sorted(port)}, JAX {sorted(jax)}.", "",
-        "### Selection evaluations", "",
-        "| side | seed | stage | frames | crash | merge | mean abs jerk | "
-        "time to merge (s) |", "| --- " * 8 + "|"]
-    for side, recs in (("port (card)", port), ("JAX (CPU)", jax)):
-        for seed in sorted(recs):
-            for r in recs[seed]:
-                for e in r["evals"]:
-                    t = "-" if e["t_merge"] is None else f"{e['t_merge']:.2f}"
-                    lines.append(
-                        f"| {side} | {seed} | {r['stage']} | {e['frames']} "
-                        f"| {e['crash']:.4f} | {e['merge']:.4f} | "
-                        f"{e['jerk']:.4f} | {t} |")
+        "### Selection evaluations", ""] + _stage_evals(port, jax)
     lines += ["", "### Selected snapshots", "",
               "| side | seed | stage 1 selected at (frames), score | final "
               "selected (stage, frames), score | crash | merge | mean abs "
@@ -935,6 +1666,248 @@ def compare_rainbow(out: str, yardsticks: str, acceptance: str) -> str:
     return text.split("**Verdict: the port's Rainbow curve ")[1].split()[0]
 
 
+# --- the DDPG comparison at the reference's budget ------------------------
+
+def jax_reference_rows() -> List[dict]:
+    """The JAX package's EVALUATE_DDPG rows of ``DDPG_REFERENCE`` in
+    ``run_data.csv``, with their line numbers."""
+    from paper_table_torch import JAX_CSV, read_rows
+    return [r for r in read_rows(JAX_CSV)
+            if r.get("LOG_DIR") == DDPG_REFERENCE
+            and r.get("TASK") == "EVALUATE_DDPG"]
+
+
+def _boundaries(record: dict) -> str:
+    """A record's segments: the rounds and frames where each ended."""
+    return "; ".join(f"{s['rounds_to']} rounds, {s['frames']:,} frames"
+                     for s in record.get("segments", [])) or "-"
+
+
+def section_ddpg(port: Dict[int, tuple], jax: Dict[int, tuple],
+                 reference: dict) -> str:
+    """The "DDPG learning curve, 1e6 + 1e6 frames" section."""
+    score = _score(reference["final"])
+    ps, js = summarize_rainbow(port, score), summarize_rainbow(jax, score)
+    rows, counts_hold, verdict = decide_rainbow(ps, js)
+    s1, s2 = next(iter(port.values()))
+    lines = [
+        DDPG_SECTION, "",
+        "Generated by `python scripts/train_curve_torch.py --compare "
+        "--trainer ddpg --stage both` from `run_data_torch_train.jsonl` "
+        "(the port on the card, `train_curve_torch.py --run --trainer ddpg "
+        "--stage 1`, then `--stage 2`, each stage carried across runs by "
+        "handoffs) and `scripts/jax_ddpg_yardsticks.json` (the JAX package "
+        "on the CPU, `scripts/jax_train_curve.py --trainer ddpg --stage "
+        "both`). Both run the two stages of `ddpg.train` on "
+        f"`{CONFIG}` at B={s1['batch']}: stage 1 at lr {s1['lr']:g}, stage "
+        f"2 at lr {s2['lr']:g} from stage 1's selected snapshot, each to "
+        f"{s1['frames_budget']:.0f} valid frames with a "
+        f"{s1['eval_episodes']}-episode selection evaluation every "
+        f"{s1['eval_every_rounds']} rounds (and of the final parameters), "
+        "the selection carried into stage 2; then the final selected actor "
+        f"is evaluated over {s2['final']['episodes']} episodes. Seeds: port "
+        f"{sorted(port)}, JAX {sorted(jax)}.", "",
+        "### Selection evaluations", ""] + _stage_evals(port, jax)
+    lines += ["", "### Selected snapshots", "",
+              "| side | seed | stage 1 selected at (frames), score | final "
+              "selected (stage, frames), score | crash | merge | mean abs "
+              "jerk | time to merge (s) | score of this evaluation | rounds "
+              "(stage 1 / 2) | s per round (median, stage 1 / 2) | s per "
+              "selection evaluation (median) | segments ended at (stage 1 "
+              "/ 2) | where |", "| --- " * 14 + "|"]
+    for side, recs in (("port", port), ("JAX", jax)):
+        for seed in sorted(recs):
+            r1, r2 = recs[seed]
+            f = r2["final"]
+            sel1, sel2 = r1["selected"], r2["selected"]
+            evals = [x for r in (r1, r2) for x in r["s_per_eval"]]
+            lines.append(
+                f"| {side} | {seed} | {sel1['frames']}, "
+                f"{sel1['score'][0]:.4f} | {sel2['stage']}, "
+                f"{sel2['frames']}, {sel2['score'][0]:.4f} | "
+                + " | ".join(_stat(f, n) for n in
+                             ("crash", "merge", "jerk", "t_merge"))
+                + f" | {_score(f):.4f} | {r1['rounds']} / {r2['rounds']} | "
+                f"{r1['s_per_round_median']:.2f} / "
+                f"{r2['s_per_round_median']:.2f} | "
+                f"{statistics.median(evals):.2f} | {_boundaries(r1)} / "
+                f"{_boundaries(r2)} | {_where(r2)} |")
+    ref = reference["final"]
+    lines += ["", "### Decision rule", "",
+              "Over seeds, |mean_port - mean_JAX| must not exceed 3 "
+              "sqrt(SEM_port^2 + SEM_JAX^2) (seed-to-seed SEMs) for each "
+              "quantity; the score is `agents/budget.py`'s `snapshot_score` "
+              "(lower is better); and the counts of seeds whose final "
+              f"snapshot scores no worse than `{DDPG_REFERENCE}` may differ "
+              f"by one at most. That network (the committed "
+              f"`rl_mpc_lanemerging_torch/weights/{DDPG_REFERENCE}.npz`) "
+              f"scores {score:.4f} over {ref['episodes']} episodes of "
+              f"`{CONFIG}` at its own seed, {reference['seed']} (crash "
+              f"{_stat(ref, 'crash')}, merge {_stat(ref, 'merge')}, |jerk| "
+              f"{_stat(ref, 'jerk')}, time to merge {_stat(ref, 't_merge')} "
+              f"s; {reference.get('card', 'CPU')}).", "",
+              "| quantity | port mean ± SEM | JAX mean ± SEM | difference | "
+              "3 SEM of the difference | holds |", "| --- " * 6 + "|"]
+    for label, p, j, diff, bar, holds in rows:
+        lines.append(f"| {label} | {_pm(p)} | {_pm(j)} | {diff:.4f} | "
+                     f"{bar:.4f} | {'yes' if holds else 'no'} |")
+    lines += [f"| seeds no worse than {DDPG_REFERENCE} | "
+              f"{ps['no_worse']} of {ps['n']} | {js['no_worse']} of "
+              f"{js['n']} | {abs(ps['no_worse'] - js['no_worse'])} | at most "
+              f"1 | {'yes' if counts_hold else 'no'} |", "",
+              f"**Verdict: the port's two-stage DDPG curve {verdict} with "
+              "the JAX package's.**", "",
+              "### The JAX package's own records of this network (context)",
+              "",
+              f"Its EVALUATE_DDPG rows of `{DDPG_REFERENCE}` in "
+              "`run_data.csv` (they disagree with each other, and can "
+              "predate the network's recommit), and the selection "
+              "evaluations of 2048 episodes it logged on the TPU in "
+              "`runs/ddpg_default1/scalars*.csv` (stage 1) and "
+              "`runs/ddpg_default1_extended/scalars*.csv` (stage 2), B=128. "
+              "None is the yardstick; the JAX rows above are.", "",
+              "| run_data.csv line | episodes | crash | merge | mean abs "
+              "jerk | time to merge (s) |", "| --- " * 6 + "|"]
+    for row in jax_reference_rows():
+        lines.append(
+            f"| {row['_line']} | {row['NUM_EPISODES']} | "
+            f"{float(row['crashed']):.4f} | {float(row['merged']):.4f} | "
+            f"{float(row['mean_abs_jerk']):.4f} | "
+            f"{float(row['time_to_merge']):.2f} |")
+    lines += ["", "| stage, run | crash / merge @ frames |", "| --- | --- |"]
+    for stage, (folder, lr) in enumerate(zip(DDPG_LOGGED,
+                                             ("0.0002", "2e-05")), 1):
+        for name, evals in logged_runs(folder, lr).items():
+            lines.append(f"| {stage}, {name} | " + "; ".join(
+                f"{e['crash']:.3f} / {e['merge']:.3f} @ {e['frames']:,}"
+                for e in evals) + " |")
+    return "\n".join(lines) + "\n"
+
+
+# the quantities of stage 1 alone: its selection (score, and the crash and
+# |jerk| of the evaluation that selected it) and the frames of the first
+# evaluation with crash <= 0.005 and merge >= 0.995
+STAGE1_METRICS = (("score", "stage 1's selection score"),
+                  ("crash", "crash of the selecting evaluation"),
+                  ("jerk", "mean abs jerk of the selecting evaluation"),
+                  ("reach_frames", "frames to crash <= 0.005 and merge >= "
+                   "0.995"))
+
+
+def summarize_stage1(records: Dict[int, dict]) -> dict:
+    """Per quantity of ``STAGE1_METRICS``, (mean, SEM) over the seeds; and
+    how many seeds reached crash <= 0.005, merge >= 0.995."""
+    cols = {"score": 0, "crash": 1, "jerk": 2}
+    out = {name: _mean_sem([r["selected"]["score"][i]
+                            for r in records.values()])
+           for name, i in cols.items()}
+    out["reach_frames"] = _mean_sem([first_reach(r["evals"],
+                                                 r["frames_budget"])
+                                     for r in records.values()])
+    out["reached"] = sum(map(_reached, records.values()))
+    out["n"] = len(records)
+    return out
+
+
+def section_ddpg_stage1(port: Dict[int, dict], jax: Dict[int, dict]) -> str:
+    """The section while only stage 1 has run on the card: stage 1 of both
+    sides under ``STAGE1_METRICS``."""
+    ps, js = summarize_stage1(port), summarize_stage1(jax)
+    rows, counts_hold, verdict = _rule(ps, js, STAGE1_METRICS, "reached")
+    r0 = next(iter(port.values()))
+    lines = [
+        DDPG_SECTION, "",
+        "Generated by `python scripts/train_curve_torch.py --compare "
+        "--trainer ddpg --stage both` from `run_data_torch_train.jsonl` "
+        "(the port on the card, `train_curve_torch.py --run --trainer ddpg "
+        "--stage 1`, carried across runs by handoffs) and "
+        "`scripts/jax_ddpg_yardsticks.json` (the JAX package on the CPU, "
+        "`scripts/jax_train_curve.py --trainer ddpg --stage both`). "
+        "**Stage 1 only**: stage 2 has not run on the card yet, so the "
+        "two-stage rule (the final snapshot's crash, merge, |jerk|, time "
+        "to merge and score, stage 1's score, the seeds no worse than "
+        f"`{DDPG_REFERENCE}`) waits for it; until then stage 1 is held "
+        "by the rule below. Both sides train "
+        f"`{CONFIG}` at B={r0['batch']}, lr {r0['lr']:g}, to "
+        f"{r0['frames_budget']:.0f} valid frames with a "
+        f"{r0['eval_episodes']}-episode selection evaluation every "
+        f"{r0['eval_every_rounds']} rounds (and of the final parameters). "
+        f"Seeds: port {sorted(port)}, JAX {sorted(jax)}.", "",
+        "### Selection evaluations, stage 1", "",
+        "| side | seed | frames | crash | merge | mean abs jerk | time to "
+        "merge (s) |", "| --- " * 7 + "|"]
+    for side, recs in (("port (card)", port), ("JAX (CPU)", jax)):
+        for seed in sorted(recs):
+            for e in recs[seed]["evals"]:
+                t = "-" if e["t_merge"] is None else f"{e['t_merge']:.2f}"
+                lines.append(f"| {side} | {seed} | {e['frames']} | "
+                             f"{e['crash']:.4f} | {e['merge']:.4f} | "
+                             f"{e['jerk']:.4f} | {t} |")
+    lines += ["", "### Stage 1's selections", "",
+              "| side | seed | selected at (frames) | score | crash | mean "
+              "abs jerk | first at crash <= 0.005, merge >= 0.995 (frames) "
+              "| rounds | s per round (median) | s per selection "
+              "evaluation (median) | segments ended at | where |",
+              "| --- " * 12 + "|"]
+    for side, recs in (("port", port), ("JAX", jax)):
+        for seed in sorted(recs):
+            r = recs[seed]
+            score = r["selected"]["score"]
+            reach = f"{first_reach(r['evals'], r['frames_budget']):.0f}" \
+                if _reached(r) else "never"
+            lines.append(
+                f"| {side} | {seed} | {r['selected']['frames']} | "
+                f"{score[0]:.4f} | {score[1]:.4f} | {score[2]:.4f} | {reach} "
+                f"| {r['rounds']} | {r['s_per_round_median']:.2f} | "
+                f"{statistics.median(r['s_per_eval']):.2f} | "
+                f"{_boundaries(r)} | {_where(r)} |")
+    lines += ["", "### Decision rule, stage 1", "",
+              "Over seeds, |mean_port - mean_JAX| must not exceed 3 "
+              "sqrt(SEM_port^2 + SEM_JAX^2) (seed-to-seed SEMs) for each "
+              "quantity; the score is `agents/budget.py`'s `snapshot_score` "
+              "(lower is better); frames count the budget where a seed "
+              "never reaches the point; and the counts of seeds that reach "
+              "it may differ by one at most.", "",
+              "| quantity | port mean ± SEM | JAX mean ± SEM | difference | "
+              "3 SEM of the difference | holds |", "| --- " * 6 + "|"]
+    for label, p, j, diff, bar, holds in rows:
+        digits = 0 if label.startswith("frames") else 4
+        lines.append(f"| {label} | {_pm(p, digits)} | {_pm(j, digits)} | "
+                     f"{diff:.{digits}f} | {bar:.{digits}f} | "
+                     f"{'yes' if holds else 'no'} |")
+    lines += [f"| seeds that reach crash <= 0.005, merge >= 0.995 | "
+              f"{ps['reached']} of {ps['n']} | {js['reached']} of {js['n']} "
+              f"| {abs(ps['reached'] - js['reached'])} | at most 1 | "
+              f"{'yes' if counts_hold else 'no'} |", "",
+              f"**Verdict (stage 1): the port's DDPG stage 1 {verdict} with "
+              "the JAX package's.**", ""]
+    return "\n".join(lines) + "\n"
+
+
+def compare_ddpg(out: str, yardsticks: str, acceptance: str) -> str:
+    """Write the two-stage DDPG section into ``acceptance`` (stage 1 alone
+    while the port has no seed with both stages); returns the verdict."""
+    stages = read_stages(_lines(out), "ddpg")
+    port = seeds_of(stages)
+    with open(yardsticks) as fh:
+        jax_stages = read_stages(json.load(fh)["records"], "ddpg")
+    jax = seeds_of(jax_stages)
+    reference = reference_record(out)
+    if port and jax and reference is not None:
+        text = section_ddpg(port, jax, reference)
+        marker = "**Verdict: the port's two-stage DDPG curve "
+    else:
+        port1 = {s: r for (s, st), r in stages.items() if st == 1}
+        jax1 = {s: r for (s, st), r in jax_stages.items() if st == 1}
+        if not port1 or not jax1:
+            raise SystemExit(f"no stage-1 records: port {sorted(port1)}, "
+                             f"JAX {sorted(jax1)}")
+        text = section_ddpg_stage1(port1, jax1)
+        marker = "**Verdict (stage 1): the port's DDPG stage 1 "
+    put_section(acceptance, DDPG_SECTION, text)
+    return text.split(marker)[1].split()[0]
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     mode = ap.add_mutually_exclusive_group(required=True)
@@ -945,16 +1918,38 @@ def main(argv=None) -> None:
     ap.add_argument("--trainer", choices=("ddpg", "rainbow"), default="ddpg")
     ap.add_argument("--seeds", type=int, nargs="+", default=list(SEEDS))
     ap.add_argument("--frames", type=float, default=None,
-                    help="valid frames (per stage): 4e5 (ddpg), 1e6 "
-                    "(rainbow)")
-    ap.add_argument("--stage", type=int, choices=(1, 2), default=1,
-                    help="rainbow: the stage to run")
-    ap.add_argument("--episodes", type=int, default=RAINBOW_EPISODES,
+                    help="valid frames (per stage): 4e5 (ddpg stage 1 "
+                    "alone), 1e6 (ddpg --stage, rainbow)")
+    ap.add_argument("--stage", choices=("1", "2", "both"), default=None,
+                    help="rainbow: the stage to run (1 by default); ddpg: "
+                    "the stage of ddpg.train to run, carried across runs "
+                    "by handoffs (without it, the 4e5-frame stage-1 "
+                    "curve); --compare --trainer ddpg --stage both: the "
+                    "two-stage comparison")
+    ap.add_argument("--episodes", type=int, default=None,
                     help="rainbow: episodes of each selection evaluation "
-                    "and of the final one")
+                    "and of the final one (1024); ddpg --stage: of each "
+                    "selection evaluation (2048)")
     ap.add_argument("--snapshots", default=SNAPSHOTS, metavar="DIR",
                     help="rainbow: where stage 1 leaves its selected "
                     "snapshots and stage 2 finds them")
+    ap.add_argument("--handoffs", default=HANDOFFS, metavar="DIR",
+                    help="ddpg --stage: where each seed's handoff and stage "
+                    "1's selection are written and found")
+    ap.add_argument("--resume-from", default=None, metavar="DIR",
+                    help="ddpg --stage: where each seed's handoffs (and, "
+                    "for stage 2, stage 1's selection) are found, if not "
+                    "in --handoffs: a run can then bring back only what it "
+                    "writes")
+    ap.add_argument("--time-limit", type=float, default=None,
+                    metavar="SECONDS",
+                    help="ddpg --stage: end each seed's segment, with a "
+                    "handoff, before this many seconds from the start")
+    ap.add_argument("--handoff-after-blocks", type=int, default=None,
+                    metavar="N", help="ddpg --stage: end each seed's "
+                    "segment, with a handoff, after N blocks of 5 rounds")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help=argparse.SUPPRESS)   # set in a spawned seed
     ap.add_argument("--concurrent", type=int, default=1,
                     help=argparse.SUPPRESS)   # set in a spawned seed
     ap.add_argument("--out", default=OUT, metavar="PATH")
@@ -962,19 +1957,40 @@ def main(argv=None) -> None:
     ap.add_argument("--acceptance", default=ACCEPTANCE, metavar="PATH")
     args = ap.parse_args(argv)
     rainbow = args.trainer == "rainbow"
+    staged = not rainbow and args.stage is not None
     if args.compare:
-        yardsticks = args.yardsticks or (RAINBOW_YARDSTICKS if rainbow
-                                         else YARDSTICKS)
-        verdict = (compare_rainbow if rainbow else compare)(
-            args.out, yardsticks, args.acceptance)
+        if staged and args.stage != "both":
+            ap.error("--compare --trainer ddpg takes --stage both or none")
+        yardsticks = args.yardsticks or (
+            RAINBOW_YARDSTICKS if rainbow
+            else DDPG_YARDSTICKS if staged else YARDSTICKS)
+        verdict = (compare_rainbow if rainbow else compare_ddpg if staged
+                   else compare)(args.out, yardsticks, args.acceptance)
         print(f"wrote the section of {args.acceptance}: the port's "
               f"{args.trainer} curve {verdict} with the JAX package's")
+        return
+    if args.stage == "both":
+        ap.error("--run takes --stage 1 or 2")
+    if rainbow:
+        run(args.seeds, args.frames or RAINBOW_FRAMES, args.out,
+            args.concurrent,
+            dict(stage=int(args.stage or 1),
+                 episodes=args.episodes or RAINBOW_EPISODES,
+                 snapshots=os.path.abspath(args.snapshots)))
+    elif staged:
+        deadline = args.deadline
+        if deadline is None and args.time_limit is not None:
+            deadline = time.time() + args.time_limit
+        run(args.seeds, args.frames or DDPG_FRAMES, args.out,
+            args.concurrent, ddpg_args=dict(
+                stage=int(args.stage),
+                eval_episodes=args.episodes or EVAL_EPISODES,
+                handoffs=os.path.abspath(args.handoffs), deadline=deadline,
+                blocks=args.handoff_after_blocks,
+                resume_from=args.resume_from and os.path.abspath(
+                    args.resume_from)))
     else:
-        frames = args.frames or (RAINBOW_FRAMES if rainbow else FRAMES)
-        run(args.seeds, frames, args.out, args.concurrent,
-            dict(stage=args.stage, episodes=args.episodes,
-                 snapshots=os.path.abspath(args.snapshots))
-            if rainbow else None)
+        run(args.seeds, args.frames or FRAMES, args.out, args.concurrent)
 
 
 if __name__ == "__main__":
