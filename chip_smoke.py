@@ -15,9 +15,13 @@ tensor-parallel training over ranks that share the card) and the arbiter's
 gate b and hysteresis carry, and holds every CUDA kernel of those paths
 against its plain PyTorch version (on st_default, the arbiter's rollout
 test states and st_fast).  Depth is
-cut where noted (512 grids in phases 3, 4 and 9; no whole learning round
-in phase 16; phase 26's (b), (c), (d) and (f)).  Phases, in order; any failure
-exits non-zero:
+cut where noted (512 grids in phases 3 and 4, 256 in phase 9; 64 states
+card vs CPU in phases 10 and 22, 32 in phase 27; 3 timed runs a stage in
+phase 13; no whole learning round in phase 16; 125-tick rounds in phase
+19; 4 single-state plans in phase 22; phase 26's (b), (c), (d) and (f); 6
+learning ticks a side of the handoff in phase 29; the one round of
+combined_default_1b is phase 27's).  Phases, in order; any failure exits
+non-zero:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the kernels from ``rl_mpc_lanemerging_torch/csrc``, one
@@ -45,21 +49,21 @@ exits non-zero:
    plain version; the plain version's time and the bound;
 8. the trained actor on the card vs on the CPU on 128 sensed states: the
    observation's presence flags identical, jerk within 1e-5;
-9. kernel vs plain version on 512 rollout test states (the state the
-   arbiter's virtual rollout reaches after ST_TEST_ROLLOUTS steps, 4
+9. kernel vs plain version on 256 rollout test states (the state the
+   arbiter's virtual rollout reaches after ST_TEST_ROLLOUTS steps, 2
    snapshots of a 128-scenario combined run): >= 99.9% identical paths;
    the share of them the safety certificate condemns;
 10. the arbiter with every gate of combined_default_1b on, on the card
-    (kernel) vs on the CPU (dense twin), on 128 of the 512 states sensed in
-    phase 9 (every state where the card's arbiter takes over, up to 64, and
+    (kernel) vs on the CPU (dense twin), on 64 of the 256 states sensed in
+    phase 9 (every state where the card's arbiter takes over, up to 32, and
     others to fill): takeover flags agree on >= 97%, every disagreement and
     the gate behind it printed;
 11. main path: ``agents.ddpg.evaluate_combined``, combined_default_1, one
     round at B=128: crash 0 and merge 1 required, exactly 2 kernel launches
     per control tick, the dense DP never called;
-12. one round of combined_default_1b (TEST_ST_STRICTLY_BETTER) at 32
-    scenarios, so that gate d runs on the card;
-13. per-stage split of one combined control tick (median of 5 runs per
+12. (none: the round of combined_default_1b, whose gate d runs on the
+    card, is phase 27's, where gate b and the carry are on too);
+13. per-stage split of one combined control tick (median of 3 runs per
     stage);
 14. the batched merge env on the card vs on the CPU: one ``env_step`` from
     each of 1024 env states (8 snapshots of 128 scenarios under the noisy
@@ -69,7 +73,7 @@ exits non-zero:
     and critic, Adam state and replay batches: relative parameter gap
     <= 1e-4;
 16. two DDPG train rounds at full width (B=128, batch 100, replay 2^19,
-    REPLAY_START 2000): 120 ticks with no update fill the replay, then 20
+    REPLAY_START 2000): 120 ticks with no update fill the replay, then 10
     ticks that all learn, 64 updates each (a whole learning round of 200
     ticks takes ~2 min, as an update takes ~10 ms of host time); updates =
     64 x the learning ticks, replay size = valid frames, finite parameters;
@@ -83,7 +87,7 @@ exits non-zero:
     share of priorities PER has updated;
 19. the training tasks: ``agents.ddpg.train`` on train_default_1 (under a
     LOG_DIR of its own, so that its runs never shadow a converted network)
-    at one 140-tick round per stage, its resume from the extended stage,
+    at one 125-tick round per stage, its resume from the extended stage,
     and EVALUATE_DQN with rainbow_default1_extended over 128 episodes.  K1
     runs on none of the training paths (its count is 0 after phases 16, 18
     and 19);
@@ -98,13 +102,14 @@ exits non-zero:
     the rollouts and re-solved plans of ``plot_rollouts`` (the work, not
     the drawing: the card's machine has no matplotlib) for
     ddpg_default1_extended;
-22. the planner's remaining forms on phase 3's 128 sensed states:
+22. the planner's remaining forms on the first 64 of phase 3's sensed
+    states:
     ``batched_conditional_st`` with the trained actor's proposed speeds
     (raised by U(0, 2) m/s on half the states, so that both verdicts
     occur), on the card (K1) vs on the CPU (dense twin): takeover flags
     agree on >= 97%, every disagreement printed, exactly 2 K1 launches;
     ``st_control_speed(use_corridor=True)``, ``plan_st`` and
-    ``test_guaranteed_crash`` on 8 states, card vs CPU: speeds within 1e-3
+    ``test_guaranteed_crash`` on 4 states, card vs CPU: speeds within 1e-3
     m/s, the same plans and verdicts; ``path_cost_report`` on a float64
     lattice, card vs CPU: costs within 1e-9 relative, counts identical; no
     K1 launch but the conditional form's;
@@ -158,7 +163,7 @@ exits non-zero:
 27. gate b (LIMIT_DQN_SPEED) and the hysteresis carry
     (REMEMBER_LAST_CHOICE_FOR_SWITCHING_COMBINED) on the card:
     combined_default_1b (combined_default_1 with gate d, inside which the
-    carry acts) with both on.  128 worlds driven by that arbiter on the
+    carry acts) with both on.  32 worlds driven by that arbiter on the
     card for 24 ticks after the ego joins; DESIRED_SPEED then comes down
     from 30 m/s (the RL's speed limit, where gate b cannot fire) to the
     median of the RL's selected speeds on those states; then 3 ticks of
@@ -172,11 +177,11 @@ exits non-zero:
     paths, every first-step difference <= 0.101 m;
 29. the learning curve's mid-stage handoff (``scripts/train_curve_torch.py``)
     on the card at B=128 on train_default_1: from a fresh DDPG trainer
-    whose replay 120 ticks with no update filled past REPLAY_START, 40
+    whose replay 120 ticks with no update filled past REPLAY_START, 12
     learning ticks straight, twice (the card's own floor of run-to-run
-    difference), and 20 ticks, the handoff written, loaded into a freshly
-    built trainer, 10 more, a delta handoff written and loaded into
-    another fresh trainer, then 10 more: every tensor the handoff carries
+    difference), and 6 ticks, the handoff written, loaded into a freshly
+    built trainer, 3 more, a delta handoff written and loaded into
+    another fresh trainer, then 3 more: every tensor the handoff carries
     (networks, targets, Adam moments and steps, the replay ring, env and
     world, the draw generator, counters) equals the straight run's
     wherever the two straight runs are equal; the seconds and sizes of
@@ -191,6 +196,7 @@ from __future__ import annotations
 
 import copy
 import csv
+import functools
 import json
 import logging
 import os
@@ -215,10 +221,10 @@ UPDATES_PER_TICK = 64
 TRAIN_ROUNDS = 2
 DDPG_FILL_TICKS = 120    # phase 16's first round: no updates; the replay
                          # reaches REPLAY_START at ~116 ticks
-DDPG_SECOND_ROUND_TICKS = 20  # phase 16's second round: every tick learns
+DDPG_SECOND_ROUND_TICKS = 10  # phase 16's second round: every tick learns
 TASK_FRAMES = 1.0        # one round per stage
-TASK_TICKS = 140         # ticks per round in phase 19: the 100-tick warmup,
-                         # REPLAY_START at ~116, then updates
+TASK_TICKS = 125         # ticks per round in phase 19: the 100-tick warmup,
+                         # REPLAY_START at ~116, then ~10 learning ticks
 TASK_EPISODES = 128
 TASK_LOG_DIR = "chip_smoke_ddpg"  # phase 19's runs; no converted network's
                                  # name, so that they shadow none
@@ -227,7 +233,7 @@ RAM_SPEED = 30.0         # phase 20's controller floors it, as the JAX
 CAPTURE_EPISODE = 40.0   # phase 20: 40 s episodes after 30 s of warmup
 CAPTURE_WAIT = 30.0
 CAPTURE_DIR = "runs_torch/chip_smoke/capture"
-CORRIDOR_STATES = 8      # phase 22's st_control_speed(use_corridor=True)
+CORRIDOR_STATES = 4      # phase 22's st_control_speed(use_corridor=True)
 TRAINED_DQN = "runs/dqn_custom_default1"
 DQN_TICKS = 200          # phase 23's train rounds
 DQN_LOG_DIR = "chip_smoke_dqn"  # no converted network's name
@@ -237,16 +243,18 @@ GYM_STEPS = 50           # phase 25: steps of each Gym env on each device
 GYM_WAIT = 5.0
 COMBINED_CONFIG = "configs/combined_default_1.json"
 COMBINED_B_CONFIG = "configs/combined_default_1b.json"
-COMBINED_B_BATCH = 32
 BATCH = 128
-ROLLOUT_SNAPSHOTS = 4    # of the combined run, ROLLOUT_SNAPSHOT_EVERY apart
+ROLLOUT_SNAPSHOTS = 2    # of the combined run, ROLLOUT_SNAPSHOT_EVERY apart
 ROLLOUT_SNAPSHOT_EVERY = 12
+ARBITER_STATES = 64      # phase 10's states, card vs CPU
+SPLIT_RUNS = 3           # phase 13: runs of each timed stage
+PLANNER_STATES = 64      # phase 22's states, card vs CPU
 # The main path's episode budget (seconds of simulated time), the CLI's
 # default.  This script's first run on an H100 80GB HBM3 (700 W) measured
 # 0.29 s per control tick with warmup included: a round of 100 s episodes
 # (every st_default episode merges first) took 178 ticks, 52 s.
 MAX_EPISODE_LENGTH = 100.0
-HANDOFF_TICKS = 20       # phase 29: learning ticks before and after the
+HANDOFF_TICKS = 6        # phase 29: learning ticks before and after the
 HANDOFF_DIR = "runs_torch/chip_smoke/handoff"   # handoff
 TIMING_RUNS = 25
 LAUNCHES_PER_RUN = 20
@@ -278,6 +286,7 @@ GATE_B_SETTINGS = dict(LIMIT_DQN_SPEED=True,
                        REMEMBER_LAST_CHOICE_FOR_SWITCHING_COMBINED=True)
 CARRY_FIRST_TICK = 24    # ticks after the ego joins
 CARRY_TICKS = 3
+CARRY_STATES = 32        # phase 27's states, card vs CPU
 GATE_B_BATCH = 32
 ST_FAST_CONFIG = "configs/st_fast.json"   # phase 28: OTHER_CAR_SPEED 15
 # (b): st_default at its own widths; the one depth cut is the scenario
@@ -377,10 +386,12 @@ def wall_ms(fn, runs: int = 10) -> float:
     return statistics.median(times)
 
 
-def tick_profile(tick, ticks: int = 3, ranges=()) -> dict:
-    """torch.profiler over a few control ticks: wall time, device time
-    summed over kernels, the device's idle share, and kernel launches per
-    tick; with ``ranges``, the host time per tick inside each of those
+def tick_profile(tick, ticks: int = 1, ranges=()) -> dict:
+    """torch.profiler over ``ticks`` control ticks after one unprofiled
+    (one by default: the profiler takes seconds to process each combined
+    tick's ~33,000 device operations): wall time, device time summed over
+    kernels, the device's idle share, and kernel launches per tick; with
+    ``ranges``, the host time per tick inside each of those
     ``record_function`` ranges and the six operators that take the most
     host time."""
     from torch.profiler import ProfilerActivity, profile
@@ -749,14 +760,14 @@ def combined_phases(dev, states, worlds0, kw) -> dict:
     pool = type(states)(*(torch.cat(x) for x in zip(*snapshots)))
     took = torch.cat([combined.arbitrate(policy, snap, cfg_b).take
                       for snap in snapshots])
-    picked = torch.cat([torch.nonzero(took)[:BATCH // 2, 0],
-                        torch.nonzero(~took)[:, 0]])[:BATCH]
+    picked = torch.cat([torch.nonzero(took)[:ARBITER_STATES // 2, 0],
+                        torch.nonzero(~took)[:, 0]])[:ARBITER_STATES]
     chosen = type(states)(*(x[picked] for x in pool))
     chosen_cpu = to_cpu(chosen)
     card = combined.arbitrate(policy, chosen, cfg_b)
     parts = [combined.arbitrate(
         policy_cpu, type(states)(*(x[i:i + 32] for x in chosen_cpu)), cfg_b)
-        for i in range(0, BATCH, 32)]
+        for i in range(0, ARBITER_STATES, 32)]
     cpu = type(card)(*(torch.cat(x) for x in zip(*parts)))
     card = type(card)(*(x.cpu() for x in card))
     gates = ("take", "crash_pred", "over_speed", "condemned", "st_better")
@@ -794,13 +805,8 @@ def combined_phases(dev, states, worlds0, kw) -> dict:
     assert out["main"]["crash"] == 0.0 and out["main"]["merge"] == 1.0
     done(t0)
 
-    t0 = phase(f"12 evaluate_combined, combined_default_1b (gate d), "
-               f"B={COMBINED_B_BATCH}")
-    out["round_b"] = combined_round(COMBINED_B_CONFIG, COMBINED_B_BATCH, dev,
-                                    st_kernel, st_dp)
-    done(t0)
-
     t0 = phase("13 combined tick split")
+    split_ms = functools.partial(wall_ms, runs=SPLIT_RUNS)
     s_hist, _, _, _, test_state = combined._rl_rollout(
         policy, states, policy(states), cfg)
     _, seq, valid, fine, fine_len, _ = mpc.batched_st_control(
@@ -808,27 +814,27 @@ def combined_phases(dev, states, worlds0, kw) -> dict:
     fine_len = torch.clamp_max(fine_len, s_hist.shape[1])
     op = qp.build_operator(cfg.fine_horizon, cfg.TICK_LENGTH)
     split = {
-        "actor_call_ms": wall_ms(lambda: policy(states)),
-        "rollout_ms": wall_ms(lambda: combined._rl_rollout(
+        "actor_call_ms": split_ms(lambda: policy(states)),
+        "rollout_ms": split_ms(lambda: combined._rl_rollout(
             policy, states, policy(states), cfg)),
-        "plan_sensed_ms": wall_ms(lambda: mpc.batched_plan(
+        "plan_sensed_ms": split_ms(lambda: mpc.batched_plan(
             states, cfg, use_kernel=True)),
-        "qp_ms": wall_ms(lambda: qp.finer_fit_qp(
+        "qp_ms": split_ms(lambda: qp.finer_fit_qp(
             seq, valid, states.ego_speed, states.ego_accel, op,
             cfg.T_DISCRETIZATION, cfg.MAX_SPEED,
             cfg.MAX_POSITIVE_ACCELERATION, cfg.MAX_NEGATIVE_ACCELERATION,
             cfg.MAXIMUM_POSITIVE_JERK, cfg.MINIMUM_NEGATIVE_JERK,
             iterations=cfg.QP_ITERATIONS)),
-        "plan_test_state_and_certificate_ms": wall_ms(
+        "plan_test_state_and_certificate_ms": split_ms(
             lambda: mpc.batched_test_guaranteed_crash(test_state, cfg,
                                                       use_kernel=True)),
-        "gate_d_mean_jerks_ms": wall_ms(lambda: (
+        "gate_d_mean_jerks_ms": split_ms(lambda: (
             combined.path_mean_abs_jerk(fine, fine_len, states.ego_speed,
                                         states.ego_accel, cfg.TICK_LENGTH),
             combined.path_mean_abs_jerk(s_hist, fine_len, states.ego_speed,
                                         states.ego_accel, cfg.TICK_LENGTH))),
-        "controller_ms": wall_ms(lambda: control(states)),
-        "controller_gate_d_on_ms": wall_ms(lambda: combined.arbitrate(
+        "controller_ms": split_ms(lambda: control(states)),
+        "controller_gate_d_on_ms": split_ms(lambda: combined.arbitrate(
             policy, states, cfg_b)),
     }
     # each stage is synchronised on its own, so the stages sum above the
@@ -1339,13 +1345,14 @@ def forensics_phases(dev, states) -> dict:
     assert all(bool(torch.isfinite(p.seq).all()) for p in plans)
     done(t0)
 
-    t0 = phase(f"22 planner forms on {BATCH} sensed states")
+    t0 = phase(f"22 planner forms on {PLANNER_STATES} sensed states")
     # the trained actor's proposals; on the second half of the states they
     # are raised by U(0, 2) m/s, as the actor's own never take over here
     policy = ddpg.actor_jerk(actor, ccfg)
-    raised = torch.as_tensor(np.random.default_rng(22).uniform(0, 2, BATCH),
-                             dtype=torch.float32, device=dev)
-    raised[:BATCH // 2] = 0.0
+    states = type(states)(*(x[:PLANNER_STATES] for x in states))
+    raised = torch.as_tensor(np.random.default_rng(22).uniform(
+        0, 2, PLANNER_STATES), dtype=torch.float32, device=dev)
+    raised[:PLANNER_STATES // 2] = 0.0
     proposed = _speed_from_jerk(states.ego_speed, states.ego_accel,
                                 policy(states), ccfg) + raised
     states_cpu, proposed_cpu = to_cpu(states), proposed.cpu()
@@ -1357,7 +1364,7 @@ def forensics_phases(dev, states) -> dict:
     launches = st_kernel.launches
     parts = [mpc.batched_conditional_st(
         type(states)(*(x[i:i + 32] for x in states_cpu)),
-        proposed_cpu[i:i + 32], ccfg) for i in range(0, BATCH, 32)]
+        proposed_cpu[i:i + 32], ccfg) for i in range(0, PLANNER_STATES, 32)]
     speed_d = torch.cat([p[0] for p in parts])
     take_d = torch.cat([p[1] for p in parts])
     take_k, speed_k = take_k.cpu(), speed_k.cpu()
@@ -1427,7 +1434,7 @@ def forensics_phases(dev, states) -> dict:
           f"{CORRIDOR_STATES} of {CORRIDOR_STATES} states, path costs "
           "within 1e-9 relative, counts identical)", flush=True)
     assert launches == 2 and float(agree.float().mean()) >= 0.97
-    assert 0 < int(take_k.sum()) < BATCH
+    assert 0 < int(take_k.sum()) < PLANNER_STATES
     assert torch.isfinite(speed_k).all() and corridor_gap <= 1e-3
     assert single_same == CORRIDOR_STATES and counts_same
     assert cost_gap <= 1e-9 and 0 < int(fin.sum()) < 8
@@ -2120,7 +2127,7 @@ def gate_b_phase(dev, st_kernel, st_dp) -> dict:
     t0 = phase(f"27 gate b and the hysteresis carry: {COMBINED_B_CONFIG} "
                f"with {json.dumps(GATE_B_SETTINGS)} and DESIRED_SPEED at the "
                f"RL's median speed, card (kernel) vs CPU (dense twin) over "
-               f"{CARRY_TICKS} ticks of {BATCH} states; a round at "
+               f"{CARRY_TICKS} ticks of {CARRY_STATES} states; a round at "
                f"B={GATE_B_BATCH}")
     cfg = Settings.load_from_file(COMBINED_B_CONFIG).replace(
         **GATE_B_SETTINGS)
@@ -2131,10 +2138,10 @@ def gate_b_phase(dev, st_kernel, st_dp) -> dict:
         for d in (dev, "cpu"))
     control, init_carry, _ = combined.combined_controller(policy, cfg)
     rng = CounterRandom(2)
-    worlds = init_world(cfg, BATCH, torch.float32, dev)
+    worlds = init_world(cfg, CARRY_STATES, torch.float32, dev)
     worlds = warmup(worlds, cfg, int(50.0 / cfg.TICK_LENGTH), rng)
-    worlds = add_ego(worlds, torch.full((BATCH,), 15.0, device=dev))
-    carry = init_carry(BATCH, dev)
+    worlds = add_ego(worlds, torch.full((CARRY_STATES,), 15.0, device=dev))
+    carry = init_carry(CARRY_STATES, dev)
     for _ in range(CARRY_FIRST_TICK):
         (speed, _), carry = control(sense(worlds, cfg), carry)
         worlds = world_step(worlds, speed, cfg, rng)
@@ -2157,7 +2164,7 @@ def gate_b_phase(dev, st_kernel, st_dp) -> dict:
         sensed_cpu = to_cpu(sensed)
         parts = [combined.arbitrate(
             policy_cpu, type(sensed)(*(x[i:i + 32] for x in sensed_cpu)),
-            cfg, last_cpu[i:i + 32]) for i in range(0, BATCH, 32)]
+            cfg, last_cpu[i:i + 32]) for i in range(0, CARRY_STATES, 32)]
         cpu = type(card)(*(torch.cat(x) for x in zip(*parts)))
         card_cpu = type(card)(*(x.cpu() for x in card))
         same = card_cpu.take == cpu.take
@@ -2175,7 +2182,7 @@ def gate_b_phase(dev, st_kernel, st_dp) -> dict:
         worlds = world_step(worlds, card.speed, cfg, rng)
     agreement = float(torch.cat(agree).float().mean())
     print(f"   DESIRED_SPEED {desired:.4f} m/s; {CARRY_TICKS} ticks x "
-          f"{BATCH} states ({carried} of them with "
+          f"{CARRY_STATES} states ({carried} of them with "
           f"a carried takeover, {by_carry} where the carry decides gate d): "
           f"flag agreement {agreement:.4f} (bar >= 0.97); firings (card, "
           f"cpu) " + json.dumps(fired), flush=True)

@@ -16,8 +16,9 @@ Two differences from the JAX package, both forced by PyTorch:
 
 * Every buffer has one scratch row at index ``cap``.  ``add_batch`` sends
   invalid rows there, as JAX sends them out of bounds (where its scatter
-  drops them; a torch index out of bounds raises).  Sampling and the
-  priority sums read ``[:cap]`` only, so the scratch row is never drawn.
+  drops them; a torch index out of bounds raises), and then clears it.
+  Sampling and the priority sums read ``[:cap]`` only, so the scratch row
+  is never drawn.
 * The writes are in place: ``add_batch`` and ``update_priorities`` write
   into the buffers they were given and return the replay with its cursor
   moved.  The JAX trainers donate the old buffer to the same effect.
@@ -85,8 +86,10 @@ def add_batch(replay: Replay, obs, next_obs, action, reward, terminal,
     """Ring-insert a batch of transitions; ``valid`` masks padded rows.
 
     Valid rows take consecutive ring slots from the cursor (their rank among
-    the valid rows); invalid rows all go to the scratch row.  No host
-    synchronisation: no boolean indexing."""
+    the valid rows); invalid rows all go to the scratch row, which is then
+    cleared: on a card, which of them lands there last is unspecified, and
+    the cleared row keeps every buffer a function of the valid rows alone.
+    No host synchronisation: no boolean indexing."""
     cap = replay.capacity
     valid = valid.to(torch.int64)
     offsets = torch.cumsum(valid, 0) - valid          # rank among valid rows
@@ -97,6 +100,7 @@ def add_batch(replay: Replay, obs, next_obs, action, reward, terminal,
 
     def write(dest, src):
         dest.index_copy_(0, slots, src.to(dest.dtype))
+        dest[cap] = 0
 
     write(replay.obs, obs)
     write(replay.next_obs, next_obs)

@@ -78,12 +78,22 @@ block would pass ``--time-limit`` or after ``--handoff-after-blocks``
 blocks, and writes ``<handoffs>/seed<k>_stage<s>_handoff.pt``, everything
 the stage needs to go on bit for bit; the next run with the same arguments
 resumes from it.  Each (seed, stage) appends one record, with its
-segments, when it ends; stage 2 then evaluates the final selection over
-1024 episodes, and the run evaluates ``ddpg_default1_extended`` once
-beside the seeds.  ``--compare --trainer ddpg --stage both`` holds both
-stages by the Rainbow rule, the counts of seeds no worse than
-``ddpg_default1_extended`` to one, and writes "DDPG learning curve, 1e6 +
-1e6 frames" (stage 1 alone, by its own rule, until stage 2 has run).
+segments, when it ends, and writes its selection to
+``<handoffs>/seed<k>_stage<s>.npz``; stage 2 then evaluates the final
+selection over 1024 episodes, and the run evaluates
+``ddpg_default1_extended`` once beside the seeds.  ``--compare --trainer
+ddpg --stage both`` holds both stages by the Rainbow rule, the counts of
+seeds no worse than ``ddpg_default1_extended`` to one, and writes "DDPG
+learning curve, 1e6 + 1e6 frames" (stage 1 alone, by its own rule, until
+stage 2 has run).
+
+    python scripts/train_curve_torch.py --export [--seeds 0 1 2 3]
+
+``--export`` writes the actor and critic of each seed's stage-2 selection
+(``scripts/curve_ddpg_stage2/seed<k>_stage2.npz``) to
+``runs_torch/curve_ddpg_seed<k>_extended/params.npz``, where the
+``MODEL_NAME`` ``runs/curve_ddpg_seed<k>_extended`` finds them
+(``scripts/paper_table_torch.py --run combined_default_1 --model ...``).
 """
 
 from __future__ import annotations
@@ -110,9 +120,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "scripts"))
 
-from paper_table_torch import (ACCEPTANCE, CURVE_SECTION,  # noqa: E402
-                               DDPG_SECTION, RAINBOW_SECTION, card_line,
-                               flagged, put_section)
+from paper_table_torch import (ACCEPTANCE, CURVE_MODEL,  # noqa: E402
+                               CURVE_SECTION, DDPG_SECTION, RAINBOW_SECTION,
+                               card_line, flagged, put_section)
 
 CONFIG = "configs/train_default_1.json"
 OUT = os.path.join(REPO, "run_data_torch_train.jsonl")
@@ -393,7 +403,8 @@ def run(seeds: List[int], frames: float, out: str, concurrent: int,
             for seed in todo:
                 snapshot_path(ddpg_args["resume_from"] or
                               ddpg_args["handoffs"], seed, check=True)
-            if todo and reference_record(out) is None:
+            # once, in the run that spawns the seeds, not in each seed
+            if todo and reference_record(out) is None and concurrent == 1:
                 def meanwhile():
                     evaluate_reference(out)
         extra = ["--trainer", "ddpg", "--stage", str(stage), "--episodes",
@@ -496,10 +507,11 @@ def stage_record(trainer: str, config: str, seed: int, stage: int,
     }
 
 
-def snapshot_path(snapshots: str, seed: int, check: bool = False) -> str:
-    """``<snapshots>/seed<seed>_stage1.npz``; with ``check``, raises where
-    it is missing."""
-    path = os.path.join(snapshots, f"seed{seed}_stage1.npz")
+def snapshot_path(snapshots: str, seed: int, check: bool = False,
+                  stage: int = 1) -> str:
+    """``<snapshots>/seed<seed>_stage<stage>.npz``; with ``check``, raises
+    where it is missing."""
+    path = os.path.join(snapshots, f"seed{seed}_stage{stage}.npz")
     if check and not os.path.exists(path):
         raise FileNotFoundError(
             f"stage 2 of seed {seed} starts from stage 1's selected "
@@ -658,6 +670,8 @@ def pending_stage(seeds: List[int], path: str, frames: float,
 DDPG_YARDSTICKS = os.path.join(REPO, "scripts", "jax_ddpg_yardsticks.json")
 DDPG_FRAMES = 1e6             # valid frames per stage, as ddpg.train
 HANDOFFS = os.path.join(REPO, "runs_torch", "curve_ddpg")
+# the committed stage-2 selections (``seed<k>_stage2.npz``)
+SELECTIONS = os.path.join(REPO, "scripts", "curve_ddpg_stage2")
 DDPG_LOGGED = (LOGGED, os.path.join(REPO, "runs", "ddpg_default1_extended"))
 # the network of the paper's combined rows, evaluated beside the seeds
 DDPG_REFERENCE = "ddpg_default1_extended"
@@ -1098,10 +1112,11 @@ def run_ddpg_stage(seed: int, frames: float, stage: int = 1,
     ``deadline``, on the ``time.time`` clock, or ``blocks``); it then
     writes its handoff to ``handoffs`` (a delta against the one it resumed
     from, where that was whole: the two must travel together) and returns
-    None.  At the stage's end, stage 1 writes its selection to
-    ``snapshot_path(handoffs)``, stage 2 evaluates the final selection over
-    ``final_episodes`` episodes; the handoff files go, and the (seed,
-    stage) record (without the card's fields) is returned."""
+    None.  At the stage's end it writes its selection to
+    ``snapshot_path(handoffs, seed, stage=stage)``, and stage 2 evaluates
+    the final selection over ``final_episodes`` episodes; the handoff files
+    go, and the (seed, stage) record (without the card's fields) is
+    returned."""
     import torch
     from rl_mpc_lanemerging_torch import tasks
     from rl_mpc_lanemerging_torch._device import (pin_fp32_matmul,
@@ -1203,10 +1218,9 @@ def run_ddpg_stage(seed: int, frames: float, stage: int = 1,
         frames_after, eval_seconds, run, best,
         1 if stage == 1 or selected is init else 2, eval_every,
         eval_episodes)
-    if stage == 1:
-        save_selection(snapshot_path(handoffs, seed),
-                       {"actor": selected[0], "critic": selected[1]}, best)
-    else:
+    save_selection(snapshot_path(handoffs, seed, stage=stage),
+                   {"actor": selected[0], "critic": selected[1]}, best)
+    if stage == 2:
         t1 = time.perf_counter()
         actor = ddpg._actor_from(cfg, selected[0], dev)
         agg = tasks.evaluate_controller(cfg, ddpg.actor_controller(
@@ -1223,6 +1237,20 @@ def run_ddpg_stage(seed: int, frames: float, stage: int = 1,
             "wall_s": sum(s["wall_s"] for s in segments),
             "k1_launches": sum(s.get("k1_launches") or 0 for s in segments),
             "torch": torch.__version__}
+
+
+def export_selection(path: str, model: str) -> str:
+    """Write the actor and critic of a DDPG selection file
+    (``save_selection``'s) as the port's checkpoint of ``MODEL_NAME``
+    ``model``, ``runs_torch/<name>/params.npz`` (``checkpoint.save_params``;
+    the ``best/`` keys stay out, as ``checkpoint.load_params`` splits every
+    key into ``<net>/<layer>/<leaf>``); returns its path."""
+    from rl_mpc_lanemerging_torch import checkpoint
+    from rl_mpc_lanemerging_torch.rundir import RUNS_ROOT
+    trees, _ = load_selection(path)
+    return checkpoint.save_params(
+        os.path.join(RUNS_ROOT, os.path.basename(os.path.normpath(model))),
+        {net: trees[net] for net in ("actor", "critic")})
 
 
 def reference_record(out: str) -> Optional[dict]:
@@ -1915,6 +1943,10 @@ def main(argv=None) -> None:
                       help="train the seeds on the card")
     mode.add_argument("--compare", action="store_true",
                       help="apply the decision rule and write its section")
+    mode.add_argument("--export", action="store_true",
+                      help="write each seed's DDPG stage-2 selection "
+                      "(scripts/curve_ddpg_stage2) as the network of "
+                      "MODEL_NAME runs/curve_ddpg_seed<k>_extended")
     ap.add_argument("--trainer", choices=("ddpg", "rainbow"), default="ddpg")
     ap.add_argument("--seeds", type=int, nargs="+", default=list(SEEDS))
     ap.add_argument("--frames", type=float, default=None,
@@ -1956,6 +1988,13 @@ def main(argv=None) -> None:
     ap.add_argument("--yardsticks", default=None, metavar="PATH")
     ap.add_argument("--acceptance", default=ACCEPTANCE, metavar="PATH")
     args = ap.parse_args(argv)
+    if args.export:
+        for seed in args.seeds:
+            model = CURVE_MODEL.format(seed)
+            path = export_selection(snapshot_path(
+                SELECTIONS, seed, check=True, stage=2), model)
+            print(f"seed {seed}: MODEL_NAME {model} -> {path}")
+        return
     rainbow = args.trainer == "rainbow"
     staged = not rainbow and args.stage is not None
     if args.compare:

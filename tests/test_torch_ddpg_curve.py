@@ -268,6 +268,49 @@ def test_the_card_scripts_stage2_is_trains_stage2(small_trainer, tmp_path,
     assert len(finals) == 2
     _equal(finals[0], finals[1])
     assert r2["final"]["episodes"] == 4 and r2["selected"]["stage"] in (1, 2)
+    # stage 2's end writes its selection: the actor it evaluated, and the
+    # selection's score and frames
+    (actor, critic), best = tc._ddpg_selection(
+        tc.snapshot_path(handoffs, 0, check=True, stage=2))
+    _equal(actor, finals[1])
+    assert set(critic) == set(pdd.DDPGCritic(20).state_dict())
+    assert best["frames"] == r2["selected"]["frames"]
+    assert list(best["score"]) == r2["selected"]["score"]
+
+
+def test_an_exported_selection_loads_as_the_selected_actor(tmp_path,
+                                                           monkeypatch):
+    """``--export``: a stage-2 selection file (with its ``best/`` keys)
+    becomes ``runs_torch/curve_ddpg_seed<k>_extended/params.npz``, which
+    ``MODEL_NAME`` ``runs/curve_ddpg_seed<k>_extended`` resolves to;
+    ``checkpoint.load_actor`` gives an actor whose outputs equal the
+    selected actor's, and the critic is kept."""
+    from rl_mpc_lanemerging_torch import checkpoint
+    monkeypatch.chdir(tmp_path)
+    gen = torch.Generator().manual_seed(3)
+    actor = pdd.DDPGActor(20, -3.0, 2.0, generator=gen)
+    critic = pdd.DDPGCritic(20, generator=gen)
+    selections = str(tmp_path / "selections")
+    tc.save_selection(tc.snapshot_path(selections, 1, stage=2),
+                      {"actor": actor.state_dict(),
+                       "critic": critic.state_dict()},
+                      {"score": (0.06, 0.0, 0.4), "frames": 123456})
+    monkeypatch.setattr(tc, "SELECTIONS", selections)
+    tc.main(["--export", "--seeds", "1"])
+    model = pt.CURVE_MODEL.format(1)
+    assert model == "runs/curve_ddpg_seed1_extended"
+    path = checkpoint.params_path(model)
+    assert path == os.path.join("runs_torch", "curve_ddpg_seed1_extended",
+                                "params.npz")
+    assert set(checkpoint.load_params(model)) == {"actor", "critic"}
+    loaded = checkpoint.load_actor(model, "cpu", -3.0, 2.0)
+    obs = torch.as_tensor(np.random.default_rng(0).normal(size=(64, 20)),
+                          dtype=torch.float32)
+    with torch.no_grad():
+        assert torch.equal(loaded(obs), actor(obs))
+    _equal(tc._ddpg_selection(path)[0][1], critic.state_dict())
+    with pytest.raises(FileNotFoundError):
+        tc.main(["--export", "--seeds", "2"])
 
 
 # --- both packages' _train_frames, scripted ---------------------------------
@@ -489,6 +532,40 @@ def test_the_reference_network_is_evaluated_once_beside_the_seeds(
         tc._lines(out), "ddpg") == {}
 
 
+def test_stage2_runs_evaluate_the_reference_in_the_spawning_run_alone(
+        tmp_path, monkeypatch):
+    """``--run --trainer ddpg --stage 2`` evaluates the reference once: in
+    the run that spawns the seeds, or runs the one seed left, and never in
+    a spawned seed (``--concurrent`` > 1), which starts before the record
+    is written."""
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(tc, "card_line", lambda: "GPU, 700.00 W")
+    monkeypatch.setattr(tc, "evaluate_reference",
+                        lambda out: calls.append("reference"))
+    monkeypatch.setattr(tc, "run_one", lambda seed, *a, **kw:
+                        calls.append(f"seed {seed}"))
+
+    def spawn(seeds, frames, out, extra, log, meanwhile):
+        meanwhile()
+        calls.append(f"spawned {seeds}")
+    monkeypatch.setattr(tc, "spawn", spawn)
+    handoffs = str(tmp_path / "handoffs")
+    for seed in range(4):
+        tc.save_selection(tc.snapshot_path(handoffs, seed), {}, {})
+    out = str(tmp_path / "curve.jsonl")
+    args = dict(stage=2, eval_episodes=8, handoffs=handoffs, deadline=None,
+                blocks=None, resume_from=None)
+    tc.run([0, 1, 2, 3], 1e6, out, 1, ddpg_args=args)
+    assert calls == ["reference", "spawned [0, 1, 2, 3]"]
+    calls.clear()
+    tc.run([2], 1e6, out, 4, ddpg_args=args)           # a spawned seed
+    assert calls == ["seed 2"]
+    calls.clear()
+    tc.run([3], 1e6, out, 1, ddpg_args=args)           # the one seed left
+    assert calls == ["reference", "seed 3"]
+
+
 def test_jax_script_records_both_stages_once(tmp_path, monkeypatch):
     from rl_mpc_lanemerging_tpu import tasks
     _short_evaluations(monkeypatch, tasks)
@@ -646,3 +723,26 @@ def test_the_earlier_curve_sections_are_regenerated_byte_for_byte(tmp_path):
         end = committed.find("\n## ", start + len(heading))
         want = committed[start:] if end < 0 else committed[start:end]
         assert open(acc).read() == want
+
+
+# SHA-256 of the section "DDPG learning curve, 1e6 + 1e6 frames" as the
+# stage-1 records alone write it (its text before stage 2 ran on the card)
+STAGE1_SECTION_SHA256 = \
+    "504ff51083c3003561aa882cb6a8f7c131f4f926a878f4e4a17e7288f406cfcc"
+
+
+def test_the_stage1_section_is_regenerated_byte_for_byte(tmp_path):
+    """The stage-1 records alone (the stage-2 and reference records left
+    out) write the stage-1 section as it stood before stage 2 ran."""
+    import hashlib
+    stage1 = str(tmp_path / "stage1.jsonl")
+    with open(stage1, "w") as fh:
+        for line in open(tc.OUT):
+            r = json.loads(line)
+            if r.get("stage") != 2 and r.get("trainer") != "reference":
+                fh.write(line)
+    acc = str(tmp_path / "acceptance.md")
+    assert tc.compare_ddpg(stage1, tc.DDPG_YARDSTICKS, acc) == "agrees"
+    text = open(acc).read()
+    assert text.startswith(pt.DDPG_SECTION + "\n")
+    assert hashlib.sha256(text.encode()).hexdigest() == STAGE1_SECTION_SHA256

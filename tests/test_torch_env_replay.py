@@ -195,6 +195,29 @@ def test_replay_sample_never_draws_the_scratch_row():
     np.testing.assert_array_equal(np.unique(batch["action"].numpy()), [0, 1])
 
 
+def test_replay_scratch_row_holds_no_invalid_row():
+    """Whichever invalid row a scatter writes last (unspecified on a card),
+    the buffers come out the same: the scratch row is cleared."""
+    valid = torch.tensor([False, True, False, True, False])
+    order = torch.tensor([4, 1, 2, 3, 0])      # the invalid rows reordered
+    obs = torch.arange(10, dtype=F64).reshape(5, 2) + 1.0
+    rows = (obs, obs + 100.0, torch.arange(5) + 1,
+            torch.arange(5, dtype=F64) + 1.0, torch.ones(5, dtype=torch.bool))
+    got = []
+    for perm in (torch.arange(5), order):
+        t = trb.init_replay(4, 2, True, dtype=F64)
+        t = trb.add_batch(t, *(x[perm] for x in rows), valid[perm], 1.0,
+                          torch.arange(5, dtype=F64)[perm] + 2.0)
+        got.append(t)
+    for name in ("obs", "next_obs", "action", "reward", "terminal",
+                 "discount", "priority"):
+        a, b = getattr(got[0], name), getattr(got[1], name)
+        assert torch.equal(a, b), name
+        assert not a[4].any(), name
+    assert torch.equal(got[0].obs[:2], obs[[1, 3]])
+    assert int(got[0].size) == 2 and int(got[0].pos) == 2
+
+
 # --- env -------------------------------------------------------------------
 
 WAIT, EPISODE = 2.0, 6.0         # 10 warmup ticks, 30-tick episodes

@@ -2,13 +2,16 @@
 synthetic CSVs: the row matcher (the newest >= 1000-episode row of each
 LOG_DIR, stale rows by their TIME), the 3-SEM flag, resuming, the
 acceptance table, the counts its runs are held to, and that ``--run``
-needs the card."""
+needs the card; each round's statistics and their pooling, ``--model``,
+and the sections of the combined lean and of the port-trained actors."""
 
 import csv
 import importlib.util
 import json
 import os
+import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -206,3 +209,291 @@ def test_instrumented_counts_ticks_launches_and_dense_calls():
     assert (tasks.evaluate_controller, st_dp.solve_st_fast) == real
     assert counts["control_ticks"] == counts["dense_dp_calls"] == 10
     assert counts["k1_launches"] == 0 and counts["evaluation_s"] > 0
+
+
+CURVE_MODEL = "runs/curve_ddpg_seed{}_extended"
+
+
+def test_model_replaces_model_name_and_gives_the_row_its_own_log_dir(
+        tmp_path):
+    jax_rows = pt.newest_rows(pt.read_rows(pt.JAX_CSV), pt.MIN_JAX_EPISODES)
+    plain = pt.table_config("combined_default_1", 1024, jax_rows)
+    cfg = pt.table_config("combined_default_1", 1024, jax_rows,
+                          CURVE_MODEL.format(2))
+    assert cfg.MODEL_NAME == CURVE_MODEL.format(2)
+    assert cfg.LOG_DIR == "combined_default_1_curve_ddpg_seed2_extended"
+    assert cfg.replace(MODEL_NAME=plain.MODEL_NAME,
+                       LOG_DIR=plain.LOG_DIR) == plain
+    assert (cfg.BATCH_SCENARIOS, cfg.NUM_EPISODES) == (512, 1024)
+    path = str(tmp_path / "port.csv")
+    _write_csv(path, [_row("combined_default_1", "2026-10-17T09:00:00",
+                           1024)])
+    assert pt.pending(["combined_default_1"], 1024, path) == []
+    assert pt.pending(["combined_default_1"], 1024, path,
+                      CURVE_MODEL.format(2)) == ["combined_default_1"]
+
+
+def _metrics(crash=0.0, merge=1.0, jerk=0.676, ttm=26.6, st=0.026,
+             sem=0.05):
+    return dict(crashed=crash, crashed_std=0.001, merged=merge,
+                merged_std=0.001, mean_abs_jerk=jerk,
+                mean_abs_jerk_std=0.004, time_to_merge=ttm,
+                time_to_merge_std=sem, clock_time_per_step=0.001,
+                **{"percent st solver": st, "percent st solver_std": 0.001})
+
+
+def _actor_rows(crashes):
+    time = "2026-10-18T0{}:00:00"
+    rows = [dict(_row("combined_default_1", time.format(1), 1024,
+                      **_metrics()),
+                 MODEL_NAME="runs/ddpg_default1_extended")]
+    for seed, crash in enumerate(crashes):
+        model = CURVE_MODEL.format(seed)
+        rows.append(dict(_row(pt.model_log_dir("combined_default_1", model),
+                              time.format(seed + 2), 1024,
+                              **_metrics(crash=crash, merge=1.0 - crash,
+                                         jerk=0.5 + seed / 10)),
+                         MODEL_NAME=model))
+    return rows
+
+
+def _bf16_script():
+    spec = importlib.util.spec_from_file_location(
+        "lean_bf16_actor_torch",
+        os.path.join(REPO, "scripts", "lean_bf16_actor_torch.py"))
+    bf16 = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bf16)
+    return bf16
+
+
+@pytest.mark.parametrize("paired", [False, True])
+def test_the_bf16_actor_run_is_run_one_under_its_own_log_dir(
+        tmp_path, monkeypatch, paired):
+    """``scripts/lean_bf16_actor_torch.py`` evaluates through ``run_one``
+    with the bfloat16 forward in place for that call alone, under its own
+    ``LOG_DIR``; ``--paired`` runs the float32 actor first and writes the
+    episode-by-episode difference of the two runs' columns."""
+    from rl_mpc_lanemerging_torch.models import ddpg as models
+    bf16 = _bf16_script()
+    monkeypatch.setitem(sys.modules, "paper_table_torch", pt)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(pt, "card_line", lambda: "a card, 700.00 W")
+    real, calls = models._forward, []
+
+    def run_one(name, episodes, csv_path, jax_rows, card, model=None,
+                log_dir=None, episodes_out=None):
+        calls.append((name, episodes, card, model, log_dir, models._forward,
+                      episodes_out))
+        rows = pt.read_rows(csv_path) if os.path.exists(csv_path) else []
+        _write_csv(csv_path, [{k: v for k, v in r.items() if k != "_line"}
+                              for r in rows] + [_row(
+            log_dir, f"2026-10-18T0{len(calls)}:00:00", episodes,
+            **_metrics())])
+        if episodes_out:
+            shift = float(models._forward is bf16.bf16_forward)
+            np.savez(episodes_out, crashed=[0.0, 0.0, 0.0],
+                     merged=[1.0, 1.0 - shift, 1.0],
+                     mean_abs_jerk=[0.6, 0.7, 0.8 + shift],
+                     time_taken=[26.0, 27.0 - shift, 28.0 - 2 * shift])
+        return {"LOG_DIR": log_dir}
+
+    monkeypatch.setattr(pt, "run_one", run_one)
+    csv_path = str(tmp_path / "bf16" / "run_data_torch.csv")
+    record = bf16.run(1024, csv_path, paired)
+    base = str(tmp_path / "bf16" / "run_data_torch")
+    want = [("combined_default_1", 1024, "a card, 700.00 W", None,
+             bf16.LOG_DIR, bf16.bf16_forward,
+             base + "_bf16.npz" if paired else None)]
+    if paired:
+        want.insert(0, ("combined_default_1", 1024, "a card, 700.00 W", None,
+                        bf16.F32_LOG_DIR, real, base + "_f32.npz"))
+    assert calls == want
+    assert record == {"LOG_DIR": bf16.LOG_DIR} and models._forward is real
+    assert os.path.exists(base + "_paired.json") == paired
+    if paired:
+        with open(base + "_paired.json") as fh:
+            diff = json.load(fh)["bf16_minus_f32"]
+        assert diff["mean_abs_jerk"]["n"] == 3
+        assert diff["mean_abs_jerk"]["mean"] == pytest.approx(1 / 3)
+        assert diff["merged"]["mean"] == pytest.approx(-1 / 3)
+        # the second episode did not merge on the bfloat16 side
+        assert diff["time_to_merge"] == pt._mean_sem([0.0, -2.0])
+
+
+def test_instrumented_keeps_each_episode_of_every_round():
+    """The per-episode columns ``run_one`` can keep are the aggregator's,
+    every round's episodes in order."""
+    from rl_mpc_lanemerging_torch import tasks
+    from rl_mpc_lanemerging_torch.planner import mpc
+    cfg = Settings.load_from_file(pt.config_path("st_default")).replace(
+        FUTURE_S=3.0, FUTURE_T=1.5, MAX_CARS=16, MAX_SENSED_CARS=12,
+        QP_ITERATIONS=5)
+    with pt.instrumented() as counts:
+        agg = tasks.evaluate_controller(
+            cfg, mpc.make_batched_controller(cfg), num_episodes=3,
+            batch=2, device="cpu", max_episode_length=2.0,
+            wait_before_start=1.0, verbose=False, mesh=None)
+    columns = counts["episode_columns"]
+    assert sorted(columns) == sorted(
+        k for k in pt.EPISODE_COLUMNS if k in agg.columns)
+    for k, v in columns.items():
+        assert len(v) == 4 and v == [float(x) for x in agg.columns[k]]
+
+
+def test_rows_of_another_model_leave_the_table_as_it_was(tmp_path):
+    """The 39-row table is the same text, byte for byte, with the
+    port-trained actors' rows in the CSV; their section comes after it."""
+    port, out = str(tmp_path / "port.csv"), str(tmp_path / "ACC.md")
+    rows = _actor_rows([0.0, 0.0, 0.0, 0.0])
+    _write_csv(port, rows[:1])
+    before = pt.compare(port, out, str(tmp_path / "none.jsonl"))
+    _write_csv(port, rows)
+    after = pt.compare(port, out, str(tmp_path / "none.jsonl"))
+    assert after.startswith(before)
+    assert after[len(before):].startswith("\n" + pt.ACTORS_SECTION + "\n")
+    assert pt.ACTORS_SECTION not in before
+
+
+@pytest.mark.parametrize("crashes, word, outside", [
+    ([0.0, 0.0, 0.0, 0.0], "holds", 0),
+    ([0.0, 0.05, 0.0, 0.0], "holds", 1),
+    ([0.0, 0.05, 0.0, 0.05], "fails", 2),
+])
+def test_the_port_trained_actors_rule(tmp_path, crashes, word, outside):
+    """Crash and merge of each seed's row within 3 SEM of the difference
+    from the committed actor's row, one seed outside at most; each seed's
+    RL-only final evaluation beside it."""
+    port, out = str(tmp_path / "port.csv"), str(tmp_path / "ACC.md")
+    _write_csv(port, _actor_rows(crashes))
+    train = str(tmp_path / "train.jsonl")
+    with open(train, "w") as fh:
+        for seed in range(4):
+            fh.write(json.dumps({
+                "trainer": "ddpg", "stage": 2, "seed": seed, "final": dict(
+                    episodes=1024, crash=0.0, crash_sem=0.0, merge=1.0,
+                    merge_sem=0.0, jerk=0.4 + seed / 100, jerk_sem=0.001,
+                    t_merge=27.0, t_merge_sem=0.05)}) + "\n")
+    text = pt.compare(port, out, train)
+    section = text[text.index(pt.ACTORS_SECTION):]
+    assert f"**Verdict: the rule {word}** ({outside} of 4 seeds" in section
+    assert section.count("| crash, merge |") == outside
+    assert "| 3 | 0.0000 ± 0.0000 | 1.0000 ± 0.0000 | 0.4300 ± 0.0010 | " \
+        "27.0000 ± 0.0500 |" in section
+    assert "| - | committed (line 2) | 1024 |" in section
+    assert "JAX, run_data.csv line 239" in section
+
+
+def test_pooled_rounds_equal_the_whole_run():
+    """Parts of uneven size, pooled from their counts, means and SEMs
+    alone, give the mean and SEM of all their values."""
+    gen = np.random.default_rng(5)
+    values = gen.normal(26.5, 1.9, 1000)
+    cuts = [0, 3, 250, 251, 700, 1000]
+    parts = [pt._mean_sem(values[a:b]) for a, b in zip(cuts, cuts[1:])]
+    whole = pt.pooled(parts + [pt._mean_sem([])])
+    want = pt._mean_sem(values)
+    assert whole["n"] == 1000
+    assert whole["mean"] == pytest.approx(want["mean"], rel=1e-13)
+    assert whole["sem"] == pytest.approx(want["sem"], rel=1e-12)
+
+
+def test_round_statistics_of_an_evaluation_pool_to_its_row():
+    """``instrumented`` records each round's statistics from the
+    aggregator that ``evaluate_controller`` builds; weighted by their
+    counts, they are the whole run's row."""
+    from rl_mpc_lanemerging_torch import tasks
+    from rl_mpc_lanemerging_torch.planner import mpc
+    cfg = Settings.load_from_file(pt.config_path("st_default")).replace(
+        FUTURE_S=3.0, FUTURE_T=1.5, MAX_CARS=16, MAX_SENSED_CARS=12,
+        QP_ITERATIONS=5)
+    with pt.instrumented() as counts:
+        agg = tasks.evaluate_controller(
+            cfg, mpc.make_batched_controller(cfg), num_episodes=5,
+            batch=2, device="cpu", max_episode_length=3.0,
+            wait_before_start=1.0, verbose=False, mesh=None)
+    rounds = counts["rounds"]
+    assert [r["episodes"] for r in rounds] == [2, 2, 2]
+    avg, sem = agg.get_stat_averages(report_stds=True)
+    for metric in ("crashed", "merged", "mean_abs_jerk"):
+        whole = pt.pooled([r[metric] for r in rounds])
+        assert whole["n"] == 6
+        assert whole["mean"] == pytest.approx(avg[metric], abs=1e-12)
+        assert whole["sem"] == pytest.approx(sem[metric], abs=1e-12)
+
+
+JAX_T, JAX_SEM = 26.4830, 0.0288
+
+
+@pytest.mark.parametrize("short, whole, early, late, depth", [
+    (26.6629, 26.50, 26.6629, 26.45, True),    # closes to under a third
+    (26.6629, 26.45, 26.6629, 26.40, True),    # changes sign
+    (26.6629, 26.62, 26.6629, 26.60, False),   # beyond 3 SEM
+    (26.6629, 26.55, 26.6629, 26.51, False),   # within, not under a third
+    (26.6629, 26.45, 26.40, 26.46, False),     # the later rounds do not
+    (26.40, 26.47, 26.40, 26.50, True),        # a gap below JAX closes
+])
+def test_the_lean_rule(short, whole, early, late, depth):
+    s = dict(mean=JAX_T, sem=JAX_SEM)
+    v = pt.lean_verdict(s, dict(mean=short, sem=0.0601),
+                        dict(mean=whole, sem=0.030),
+                        dict(mean=early, sem=0.0601),
+                        dict(mean=late, sem=0.034))
+    assert v["depth"] is depth
+
+
+class _Agg:
+    def __init__(self, columns):
+        self.columns, self.custom = columns, {}
+
+
+@pytest.mark.parametrize("late_shift, word", [(-0.25, "depth"),
+                                              (0.0, "persists")])
+def test_the_lean_section_decides_synthetic_runs(tmp_path, late_shift,
+                                                 word):
+    """Per-episode values in 8 rounds of 64: the 1024-episode row is rounds
+    1-2, the 4000-episode run all eight; rounds 3-8 merge ``late_shift``
+    sooner."""
+    gen = np.random.default_rng(12)
+    rows, records = [], []
+    for name, jax_line in zip(pt.LEAN_CONFIGS, (239, 300)):
+        jax = pt.newest_rows(pt.read_rows(pt.JAX_CSV))[name]
+        base = float(jax["time_to_merge"]) + 0.18
+        ttm = [gen.normal(base + (late_shift if r >= 2 else 0.0), 0.3, 64)
+               for r in range(8)]
+        cols = {"crashed": [], "merged": [], "mean_abs_jerk": [],
+                "time_to_merge": []}
+        ends = []
+        for t in ttm:
+            cols["crashed"] += [0.0] * 64
+            cols["merged"] += [1.0] * 64
+            cols["mean_abs_jerk"] += list(gen.normal(0.67, 0.05, 64))
+            cols["time_to_merge"] += list(t)
+            ends.append({k: len(v) for k, v in cols.items()})
+        rounds = pt.round_stats(_Agg(cols), ends)
+
+        def row(rs, time, episodes):
+            out = _row(name, time, episodes, clock_time_per_step=0.001)
+            for m in ("crashed", "merged", "mean_abs_jerk",
+                      "time_to_merge"):
+                p = pt.pooled([r[m] for r in rs])
+                out[m], out[m + "_std"] = p["mean"], p["sem"]
+            return out
+        rows += [row(rounds[:2], "2026-10-17T08:00:00", 1024),
+                 row(rounds, "2026-10-18T08:00:00", 4000)]
+        records.append({"LOG_DIR": name, "TIME": "2026-10-18T08:00:00",
+                        "card": "GPU, 700.00 W", "batch": 512,
+                        "wall_s": 900.0, "s_per_control_tick": 0.4,
+                        "control_ticks": 1800, "k1_per_tick": 2.0,
+                        "rounds": rounds, "dense_dp_calls": 0,
+                        "max_memory_allocated_bytes": 1 << 30})
+    port, out = str(tmp_path / "port.csv"), str(tmp_path / "ACC.md")
+    _write_csv(port, rows)
+    with open(str(tmp_path / "port.jsonl"), "w") as fh:
+        fh.writelines(json.dumps(r) + "\n" for r in records)
+    text = pt.compare(port, out, str(tmp_path / "none.jsonl"))
+    section = text[text.index(pt.LEAN_SECTION):]
+    assert f'**Verdict: "{word}".**' in section
+    assert section.count("(they reproduce it).") == 2
+    assert "| 3-8 | 384 |" in section and "| 1-2 | 128 |" in section
+    assert "JAX, run_data.csv line 239" in section \
+        and "JAX, run_data.csv line 300" in section
