@@ -19,7 +19,8 @@ cut where noted (512 grids in phases 3 and 4, 256 in phase 9; 64 states
 card vs CPU in phases 10 and 22, 32 in phase 27; 3 timed runs a stage in
 phase 13; no whole learning round in phase 16; 125-tick rounds in phase
 19; 4 single-state plans in phase 22; phase 26's (b), (c), (d) and (f); 6
-learning ticks a side of the handoff in phase 29; the one round of
+learning ticks a side of the handoff in phase 29, 3 rounds of 20 ticks
+in phase 30; the one round of
 combined_default_1b is phase 27's).  Phases, in order; any failure exits
 non-zero:
 
@@ -140,7 +141,8 @@ non-zero:
     (the wall-time columns aside), K1's launches summed over the ranks =
     the control ticks they ran, each rank's s per tick beside phase 6's;
     (b) the CLI (``python -m rl_mpc_lanemerging_torch.main``) with
-    ``RANK=0 WORLD_SIZE=1`` on st_default at its own widths: the NCCL
+    ``RANK=0 WORLD_SIZE=1`` on st_default at its own widths, a process
+    started first that runs beside (a) and (c)-(f): the NCCL
     process group comes up, one CSV row whose crash and merge rates equal
     those of phase 6's first 8 episodes, the same scenarios (8 of 128
     scenarios, a depth cut);
@@ -185,7 +187,15 @@ non-zero:
     (networks, targets, Adam moments and steps, the replay ring, env and
     world, the draw generator, counters) equals the straight run's
     wherever the two straight runs are equal; the seconds and sizes of
-    both handoffs.
+    both handoffs;
+30. the custom DQN's handoff (``scripts/train_curve_torch.py --trainer
+    dqn``) on the card at B=128 on train_default_1 as TRAIN_DQN: from a
+    fresh trainer whose replay a 150-tick round with no grad step filled,
+    3 rounds of 20 ticks straight, twice, and 1 round, the handoff
+    written, loaded into a freshly built trainer, 2 more: every tensor the
+    handoff carries (network, target, Adam state, the replay ring with its
+    priorities, env and world, the draw generator, counters) equals the
+    straight run's wherever the two straight runs are equal; K1 0.
 
 Every phase prints its seconds, and the script its total.
 Prints the ``kernels`` JSON line before the last line, and as the last line
@@ -256,6 +266,9 @@ PLANNER_STATES = 64      # phase 22's states, card vs CPU
 MAX_EPISODE_LENGTH = 100.0
 HANDOFF_TICKS = 6        # phase 29: learning ticks before and after the
 HANDOFF_DIR = "runs_torch/chip_smoke/handoff"   # handoff
+DQN_HANDOFF_ROUNDS = 3   # phase 30: custom-DQN rounds, straight and cut
+DQN_HANDOFF_TICKS = 20   # after the first, of this many ticks each, after
+DQN_FILL_TICKS = 150     # a filling round with no grad step
 TIMING_RUNS = 25
 LAUNCHES_PER_RUN = 20
 SNAPSHOTS = 4            # of the 128 worlds, SNAPSHOT_EVERY ticks apart
@@ -1933,15 +1946,52 @@ def mesh_phases(dev, main_cfg, single, states, st_kernel, st_dp) -> dict:
     """Phase 26: the scenario mesh on one card.  ``single`` is phase 6's
     one-process round (columns, s per tick) of ``main_cfg``; ``states``
     phase 3's 128 sensed states."""
-    from rl_mpc_lanemerging_torch.checkpoint import load_actor
-    from rl_mpc_lanemerging_torch.config import Settings
     from rl_mpc_lanemerging_torch.parallel import sharded
-    from rl_mpc_lanemerging_torch.rl.obs import state_vector
 
     t_phase = phase("26 the scenario mesh on one card: (a) sharded ST, "
                     "(c) DP DDPG, (d) DP DQN, (e) TP critic over 2 gloo "
                     "ranks; (b) NCCL at world size 1; (f) combined_default_2")
     out = {}
+    # (b) the CLI at world size 1 over NCCL, one ST round of 8 scenarios:
+    # a process of its own, started first so that it runs beside the
+    # ranks and (f) (the phase is host-bound, and the host has the cores)
+    t_cli = time.perf_counter()
+    run_dir = os.path.join("runs_torch", "chip_smoke_nccl")
+    os.makedirs(run_dir, exist_ok=True)
+    config = os.path.join(run_dir, "st_nccl.json")
+    with open(config, "w") as fh:
+        json.dump(dict(json.load(open(CONFIG)), **NCCL_SETTINGS), fh)
+    rows = os.path.join(run_dir, "rows.csv")
+    if os.path.exists(rows):
+        os.remove(rows)
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="localhost", MASTER_PORT=str(sharded.free_port()))
+    logs = [open(os.path.join(run_dir, f"cli.{name}"), "w+")
+            for name in ("out", "err")]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "rl_mpc_lanemerging_torch.main", config,
+         "--csv", rows, "--device", dev.type], env=env, stdout=logs[0],
+        stderr=logs[1], text=True)
+    try:
+        return _mesh_parts(dev, main_cfg, single, states, st_kernel, st_dp,
+                           out, t_phase, proc, logs, rows, t_cli)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for log in logs:
+            log.close()
+
+
+def _mesh_parts(dev, main_cfg, single, states, st_kernel, st_dp, out,
+                t_phase, proc, logs, cli_rows, t_cli) -> dict:
+    """Phase 26's parts, the CLI (b) running meanwhile in ``proc`` (its
+    standard output and error in ``logs``, its CSV row in ``cli_rows``)."""
+    from rl_mpc_lanemerging_torch.checkpoint import load_actor
+    from rl_mpc_lanemerging_torch.config import Settings
+    from rl_mpc_lanemerging_torch.parallel import sharded
+    from rl_mpc_lanemerging_torch.rl.obs import state_vector
+
     train_cfg = Settings.load_from_file(TRAIN_CONFIG)
     actor = load_actor(TRAINED_DDPG, dev, train_cfg.MINIMUM_NEGATIVE_JERK,
                        train_cfg.MAXIMUM_POSITIVE_JERK, committed=True)
@@ -1995,42 +2045,6 @@ def mesh_phases(dev, main_cfg, single, states, st_kernel, st_dp) -> dict:
     print(f"   spawn of {MESH_RANKS} ranks, (a) and (c)-(e): "
           f"{spawn_s:.2f} s", flush=True)
 
-    # (b) the CLI at world size 1 over NCCL: one ST round of 8 scenarios
-    t0 = time.perf_counter()
-    run_dir = os.path.join("runs_torch", "chip_smoke_nccl")
-    os.makedirs(run_dir, exist_ok=True)
-    config = os.path.join(run_dir, "st_nccl.json")
-    with open(config, "w") as fh:
-        json.dump(dict(json.load(open(CONFIG)), **NCCL_SETTINGS), fh)
-    rows = os.path.join(run_dir, "rows.csv")
-    if os.path.exists(rows):
-        os.remove(rows)
-    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
-               MASTER_ADDR="localhost", MASTER_PORT=str(sharded.free_port()))
-    proc = subprocess.run(
-        [sys.executable, "-m", "rl_mpc_lanemerging_torch.main", config,
-         "--csv", rows, "--device", dev.type], env=env, capture_output=True,
-        text=True, timeout=600)
-    backend = "nccl" if dev.type == "cuda" else "gloo"
-    text = proc.stdout + proc.stderr
-    assert proc.returncode == 0, text[-3000:]
-    with open(rows, newline="") as fh:
-        csv_rows = list(csv.DictReader(fh))
-    first = {k: float(np.mean(single["columns"][k][:NCCL_SETTINGS[
-        "BATCH_SCENARIOS"]])) for k in ("crashed", "merged")}
-    out["b"] = {"returncode": proc.returncode, "csv_rows": len(csv_rows),
-                "nccl_group": f"backend {backend}, rank 0 of 1" in text,
-                "round_line": next((ln for ln in text.splitlines()
-                                    if ln.startswith("[")), None),
-                "row": {k: float(csv_rows[-1][k]) for k in (
-                    "crashed", "merged", "mean_abs_jerk", "time_to_merge")}
-                if csv_rows else None,
-                "phase_6_first_8": first,
-                "part_s": time.perf_counter() - t0}
-    print("   (b) " + json.dumps(out["b"]), flush=True)
-    assert out["b"]["nccl_group"] and len(csv_rows) == 1, text[-3000:]
-    assert all(out["b"]["row"][k] == v for k, v in first.items()), out["b"]
-
     # (f) a newly converted actor through the arbiter
     t0 = time.perf_counter()
     rep = combined_round(COMBINED_2_CONFIG, COMBINED_2_BATCH, dev, st_kernel,
@@ -2049,6 +2063,32 @@ def mesh_phases(dev, main_cfg, single, states, st_kernel, st_dp) -> dict:
           + json.dumps(rep["run_data"]), flush=True)
     n = COMBINED_2_BATCH
     assert rep["crash"] * n <= 1 and rep["merge"] * n >= n - 1
+
+    # (b), collected
+    proc.wait(timeout=600)
+    text = ""
+    for log in logs:
+        log.seek(0)
+        text += log.read()
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    assert proc.returncode == 0, text[-3000:]
+    with open(cli_rows, newline="") as fh:
+        csv_rows = list(csv.DictReader(fh))
+    first = {k: float(np.mean(single["columns"][k][:NCCL_SETTINGS[
+        "BATCH_SCENARIOS"]])) for k in ("crashed", "merged")}
+    out["b"] = {"returncode": proc.returncode, "csv_rows": len(csv_rows),
+                "nccl_group": f"backend {backend}, rank 0 of 1" in text,
+                "round_line": next((ln for ln in text.splitlines()
+                                    if ln.startswith("[")), None),
+                "row": {k: float(csv_rows[-1][k]) for k in (
+                    "crashed", "merged", "mean_abs_jerk", "time_to_merge")}
+                if csv_rows else None,
+                "phase_6_first_8": first,
+                "part_s": time.perf_counter() - t_cli,
+                "beside": "(a), (c)-(f)"}
+    print("   (b) " + json.dumps(out["b"]), flush=True)
+    assert out["b"]["nccl_group"] and len(csv_rows) == 1, text[-3000:]
+    assert all(out["b"]["row"][k] == v for k, v in first.items()), out["b"]
     out["seconds"] = time.perf_counter() - t_phase
     print("   phase 26 parts (s): " + json.dumps(
         {p: out[p]["part_s"] for p in "abcdef"}), flush=True)
@@ -2238,6 +2278,32 @@ def _leaves(tree, path=""):
         yield path, tree
 
 
+def _resumed_off(straight, resumed) -> tuple:
+    """Two straight runs' trees and a resumed run's, leaf by leaf: (values
+    compared, values where the straight runs differ, values where the
+    resumed run differs from them where they agree); every other leaf must
+    be equal in all three."""
+    a, b = dict(_leaves(straight[0])), dict(_leaves(straight[1]))
+    r = dict(_leaves(resumed))
+    assert a.keys() == b.keys() == r.keys()
+    elements = floor = off = 0
+    for name, x in a.items():
+        if not isinstance(x, torch.Tensor):
+            assert x == b[name] == r[name], (name, x, b[name], r[name])
+            continue
+        assert x.shape == r[name].shape and x.dtype == r[name].dtype, name
+        same = ~_differing(x, b[name])
+        bad = _differing(x, r[name]) & same
+        elements += x.numel()
+        floor += int((~same).sum())
+        if bad.any():
+            off += int(bad.sum())
+            print(f"   {name}: {int(bad.sum())} of {x.numel()} values differ "
+                  "from the straight run where the straight runs agree",
+                  flush=True)
+    return elements, floor, off
+
+
 def handoff_phase(dev) -> dict:
     """Phase 29: the curve script's handoff, a round trip on the card."""
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
@@ -2295,25 +2361,8 @@ def handoff_phase(dev) -> dict:
         os.remove(name)
     resumed = learn(resumed, HANDOFF_TICKS - HANDOFF_TICKS // 2)
     seconds["resumed_s"] = time.perf_counter() - t1
-    got = curve.train_state_tree(resumed)
-    a, b = dict(_leaves(trees[0])), dict(_leaves(trees[1]))
-    r = dict(_leaves(got))
-    assert a.keys() == b.keys() == r.keys()
-    elements = floor = off = 0
-    for name, x in a.items():
-        if not isinstance(x, torch.Tensor):
-            assert x == b[name] == r[name], (name, x, b[name], r[name])
-            continue
-        assert x.shape == r[name].shape and x.dtype == r[name].dtype, name
-        same = ~_differing(x, b[name])
-        bad = _differing(x, r[name]) & same
-        elements += x.numel()
-        floor += int((~same).sum())
-        if bad.any():
-            off += int(bad.sum())
-            print(f"   {name}: {int(bad.sum())} of {x.numel()} values differ "
-                  "from the straight run where the straight runs agree",
-                  flush=True)
+    elements, floor, off = _resumed_off(trees,
+                                        curve.train_state_tree(resumed))
     rep = {"elements": elements, "straight_runs_differ": floor,
            "resumed_differs_where_straight_agree": off,
            "handoff_bytes": size, "delta_bytes": delta_size,
@@ -2324,6 +2373,83 @@ def handoff_phase(dev) -> dict:
           "the straight run where the straight runs agree)", flush=True)
     assert off == 0 and int(resumed.updates) == 2 * HANDOFF_TICKS \
         * UPDATES_PER_TICK
+    done(t0)
+    return rep
+
+
+def dqn_handoff_phase(dev) -> dict:
+    """Phase 30: the curve script's custom-DQN handoff, a round trip on the
+    card: ``DQN_HANDOFF_ROUNDS`` rounds straight (twice) against one, a
+    handoff into a fresh state, and the rest, each after a filling round
+    with no grad step."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "scripts"))
+    import train_curve_torch as curve
+    from rl_mpc_lanemerging_torch import tasks
+    from rl_mpc_lanemerging_torch.agents import dqn
+    from rl_mpc_lanemerging_torch.agents.budget import grad_steps_per_round
+    from rl_mpc_lanemerging_torch.ops import st_kernel
+
+    t0 = phase(f"30 custom-DQN handoff, train_default_1 as TRAIN_DQN, "
+               f"B={BATCH}, rounds of {DQN_HANDOFF_TICKS} ticks")
+    cfg = curve.dqn_config(30, BATCH)
+    steps = grad_steps_per_round(cfg.TRAINING_STEPS_PER_EPISODE, BATCH,
+                                 DQN_HANDOFF_TICKS)
+    launches0 = st_kernel.launches
+
+    def fresh():
+        worlds, world_rng = tasks.make_worlds(cfg, device=dev)
+        return dqn.make_train_state(cfg, worlds, world_rng, seed=30)
+
+    def learn(state, rounds):
+        for _ in range(rounds):
+            state = dqn.train_round(state, cfg, env_ticks=DQN_HANDOFF_TICKS,
+                                    grad_steps=steps)
+        torch.cuda.synchronize(dev)
+        return state
+
+    def filled():
+        state = dqn.train_round(fresh(), cfg, env_ticks=DQN_FILL_TICKS,
+                                grad_steps=0)
+        assert int(state.replay.size) >= cfg.BATCH_SIZE, \
+            int(state.replay.size)
+        return state
+
+    def tree(state):
+        return curve.train_state_tree(state, curve.DQN_FIELDS)
+
+    seconds = {}
+    trees = []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        trees.append(tree(learn(filled(), DQN_HANDOFF_ROUNDS)))
+        seconds.setdefault("straight_s", []).append(time.perf_counter() - t1)
+    t1 = time.perf_counter()
+    state = learn(filled(), 1)
+    key = curve.dqn_handoff_key(30, BATCH, curve.DQN_EPISODES,
+                                curve.DQN_EVAL_EPISODES, DQN_HANDOFF_TICKS)
+    path = curve.handoff_path(HANDOFF_DIR, 30, curve.DQN_STAGE, 1)
+    seconds["save_s"], size = curve.save_handoff(
+        path, state, key, {}, fields=curve.DQN_FIELDS)
+    t2 = time.perf_counter()
+    resumed = fresh()
+    curve.load_handoff(path, resumed, key, curve.DQN_FIELDS)
+    seconds["load_s"] = time.perf_counter() - t2
+    os.remove(path)
+    resumed = learn(resumed, DQN_HANDOFF_ROUNDS - 1)
+    seconds["resumed_s"] = time.perf_counter() - t1
+    elements, floor, off = _resumed_off(trees, tree(resumed))
+    rep = {"elements": elements, "straight_runs_differ": floor,
+           "resumed_differs_where_straight_agree": off,
+           "handoff_bytes": size, "replay_rows": int(resumed.replay.size),
+           "grad_steps": resumed.grad_steps,
+           "episodes": int(resumed.episodes),
+           "k1_launches": st_kernel.launches - launches0, **seconds}
+    print("   " + json.dumps(rep) + " (bar: 0 values of the resumed run off "
+          "the straight run where the straight runs agree)", flush=True)
+    assert off == 0, rep
+    assert resumed.grad_steps == DQN_HANDOFF_ROUNDS * steps, rep
+    assert rep["k1_launches"] == 0, rep
     done(t0)
     return rep
 
@@ -2605,6 +2731,7 @@ def main() -> int:
     gate_b = gate_b_phase(dev, st_kernel, st_dp)
     st_fast = st_fast_phase(dev, st_kernel)
     handoff_phase(dev)
+    dqn_handoff = dqn_handoff_phase(dev)
     print(f"   the script: {time.perf_counter() - t_script:.2f} s",
           flush=True)
 
@@ -2654,6 +2781,7 @@ def main() -> int:
         "launches_capture_replay_rollout_plans":
         forms["replay"]["k1_launches"],
         "launches_dqn_tabular_gym": rest["k1_launches"],
+        "launches_dqn_handoff": dqn_handoff["k1_launches"],
         "sharded_st_control_ticks": sum(mesh["a"]["ticks_per_rank"]),
         "sharded_st_seconds_per_tick_per_rank":
         mesh["a"]["s_per_tick_per_rank"],

@@ -23,7 +23,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -43,7 +43,8 @@ from .draws import GeneratorDraws
 
 __all__ = ["GeneratorDraws", "DQNTrainState", "make_train_state",
            "epsilon_by_episode", "train_round", "make_sharded_train",
-           "refresh_target", "train", "greedy_controller"]
+           "refresh_target", "eval_greedy", "new_loop", "train_episodes",
+           "train", "greedy_controller"]
 
 
 @dataclasses.dataclass
@@ -232,53 +233,56 @@ def _save(run_dir: str, net: DQNNet) -> str:
         "q": convert.tree_from_state_dict(net.state_dict())})
 
 
-def train(cfg: Settings, num_episodes: Optional[int] = None,
-          verbose: bool = True, env_ticks: int = 200, device="cuda",
-          eval_episodes: Optional[int] = None) -> DQNTrainState:
-    """The custom trainer's loop (reference dqn.py:257-359
-    ``DQNAgent._train``): train for NUM_TRAINING_EPISODES with the
-    staircase epsilon schedule, refresh the target net every
-    TARGET_NET_FREEZE_PERIOD episodes, evaluate greedily every
-    EVALUATION_PERIOD episodes (over ``eval_episodes``, by default
-    max(NUM_EVALUATION_EPISODES, 512)), keep the best-scoring snapshot
-    (``budget.snapshot_score``), and write it to
-    ``runs_torch/<LOG_DIR>/params.npz`` under the net key ``q``."""
+def eval_greedy(cfg: Settings, net: DQNNet, num_episodes: int, device):
+    """A greedy evaluation at the evaluation tick (reference dqn.py:282-285);
+    returns its ``StatsAggregator``."""
     from .. import tasks
-    from ..rundir import setup_run_dir
-    from .budget import grad_steps_per_round, snapshot_score
-
-    dev = resolve_device(device)
-    pin_fp32_matmul()
-    run = setup_run_dir(cfg)
-    num_episodes = num_episodes or cfg.NUM_TRAINING_EPISODES
-    eval_episodes = eval_episodes or max(cfg.NUM_EVALUATION_EPISODES, 512)
-    worlds, world_rng = tasks.make_worlds(cfg, device=dev)
-    state = make_train_state(cfg, worlds, world_rng, tasks.seed_of(cfg))
-    batch = worlds.ego_arc.shape[0]
-    # the reference's TRAINING_STEPS_PER_EPISODE grad steps per episode
-    grad_steps = grad_steps_per_round(cfg.TRAINING_STEPS_PER_EPISODE,
-                                      batch, env_ticks)
     eval_cfg = cfg.replace(TICK_LENGTH=cfg.EVALUATION_TICK_LENGTH)
-    last_target = last_eval = 0
-    best: dict = {}
-    r = 0
-    eps_done = 0
+    return tasks.evaluate_controller(
+        eval_cfg, greedy_controller(net, eval_cfg),
+        num_episodes=num_episodes, device=device,
+        max_episode_length=cfg.EVALUATION_EPISODE_LENGTH, verbose=False)
+
+
+def new_loop() -> dict:
+    """The counters ``train_episodes`` carries from round to round."""
+    return {"rounds": 0, "last_target": 0, "last_eval": 0}
+
+
+def train_episodes(cfg: Settings, state: DQNTrainState, num_episodes: int,
+                   grad_steps: int, eval_episodes: int, device, run,
+                   best: dict, loop: dict, env_ticks: int = 200,
+                   verbose: bool = True, checkpoint: Optional[str] = None,
+                   stop: Optional[Callable[[], bool]] = None,
+                   evaluate: Callable = eval_greedy) -> DQNTrainState:
+    """``train``'s loop (reference dqn.py:257-359): rounds until
+    ``num_episodes`` episodes are done, the target refreshed every
+    TARGET_NET_FREEZE_PERIOD episodes and a greedy evaluation every
+    EVALUATION_PERIOD episodes (``evaluate``, called as ``eval_greedy``)
+    that keeps the best-scoring snapshot in ``best``
+    (``budget.snapshot_score``) and logs to ``run``; with ``checkpoint``,
+    the network is saved there after each evaluation.  ``loop``
+    (``new_loop()``) holds the round count and the episodes of the last
+    refresh and evaluation, updated in place after each round.  ``stop`` is
+    asked before each round; where it returns true the loop returns there,
+    and a later call goes on from the same ``state``, ``best``, ``run`` and
+    ``loop``."""
+    from .budget import snapshot_score
+    eps_done = int(state.episodes)
     while eps_done < num_episodes:
+        if stop is not None and stop():
+            break
         state = train_round(state, cfg, env_ticks=env_ticks,
                             grad_steps=grad_steps)
-        r += 1
+        loop["rounds"] += 1
         eps_done = int(state.episodes)          # one read per round
-        if eps_done - last_target >= cfg.TARGET_NET_FREEZE_PERIOD:
+        if eps_done - loop["last_target"] >= cfg.TARGET_NET_FREEZE_PERIOD:
             refresh_target(state)
-            last_target = eps_done
-        if eps_done - last_eval >= cfg.EVALUATION_PERIOD:
-            last_eval = eps_done
-            agg = tasks.evaluate_controller(
-                eval_cfg, greedy_controller(state.net, eval_cfg),
-                num_episodes=eval_episodes, device=dev,
-                max_episode_length=cfg.EVALUATION_EPISODE_LENGTH,
-                verbose=False)
-            avg = agg.get_stat_averages()
+            loop["last_target"] = eps_done
+        if eps_done - loop["last_eval"] >= cfg.EVALUATION_PERIOD:
+            loop["last_eval"] = eps_done
+            avg = evaluate(cfg, state.net, eval_episodes,
+                           device).get_stat_averages()
             if verbose:
                 print(f"  [eval @ {eps_done} eps] "
                       f"crash={avg['crashed']:.4f} "
@@ -295,13 +299,46 @@ def train(cfg: Settings, num_episodes: Optional[int] = None,
                 best.update(score=score, episodes=eps_done, params={
                     k: v.detach().clone()
                     for k, v in state.net.state_dict().items()})
-            _save(run.path, state.net)                     # checkpoint
-        if verbose and r % 10 == 0:
+            if checkpoint is not None:
+                _save(checkpoint, state.net)
+        if verbose and loop["rounds"] % 10 == 0:
             eps = float(epsilon_by_episode(state.episodes, cfg))
             loss = float(state.loss_sum)
-            print(f"  round {r} episodes={eps_done} eps={eps:.3f} "
-                  f"loss={loss:.4f}", flush=True)
+            print(f"  round {loop['rounds']} episodes={eps_done} "
+                  f"eps={eps:.3f} loss={loss:.4f}", flush=True)
             run.log_scalars(eps_done, {"epsilon": eps, "loss": loss})
+    return state
+
+
+def train(cfg: Settings, num_episodes: Optional[int] = None,
+          verbose: bool = True, env_ticks: int = 200, device="cuda",
+          eval_episodes: Optional[int] = None) -> DQNTrainState:
+    """The custom trainer's loop (reference dqn.py:257-359
+    ``DQNAgent._train``): train for NUM_TRAINING_EPISODES with the
+    staircase epsilon schedule, refresh the target net every
+    TARGET_NET_FREEZE_PERIOD episodes, evaluate greedily every
+    EVALUATION_PERIOD episodes (over ``eval_episodes``, by default
+    max(NUM_EVALUATION_EPISODES, 512)), keep the best-scoring snapshot
+    (``budget.snapshot_score``), and write it to
+    ``runs_torch/<LOG_DIR>/params.npz`` under the net key ``q``."""
+    from .. import tasks
+    from ..rundir import setup_run_dir
+    from .budget import grad_steps_per_round
+
+    dev = resolve_device(device)
+    pin_fp32_matmul()
+    run = setup_run_dir(cfg)
+    worlds, world_rng = tasks.make_worlds(cfg, device=dev)
+    state = make_train_state(cfg, worlds, world_rng, tasks.seed_of(cfg))
+    best: dict = {}
+    # the reference's TRAINING_STEPS_PER_EPISODE grad steps per episode
+    state = train_episodes(
+        cfg, state, num_episodes or cfg.NUM_TRAINING_EPISODES,
+        grad_steps_per_round(cfg.TRAINING_STEPS_PER_EPISODE,
+                             worlds.ego_arc.shape[0], env_ticks),
+        eval_episodes or max(cfg.NUM_EVALUATION_EPISODES, 512), dev, run,
+        best, new_loop(), env_ticks=env_ticks, verbose=verbose,
+        checkpoint=run.path)
     if best.get("params") is not None:
         if verbose:
             print(f"  selected snapshot @ {best['episodes']} episodes "

@@ -121,7 +121,13 @@ def sample(replay: Replay, batch: int, u: Optional[torch.Tensor] = None,
     (dqn.py:778-794)."""
     cap = replay.capacity
     p = replay.priority[:cap]
-    c = torch.cumsum(p, 0)
+    # On a card the scan adds in an order that can change from call to
+    # call.  In float64 the partial sums of a float32 ring are exact (its
+    # priorities, PER_MIN_PRIORITY ** PER_ALPHA to PER_MAX_PRIORITY **
+    # PER_ALPHA over at most 65,536 rows, need at most 50 bits), so the
+    # draw does not depend on that order.  The CPU's scan is sequential,
+    # as JAX's.
+    c = torch.cumsum(p, 0, dtype=torch.float64 if p.is_cuda else p.dtype)
     if u is None:
         u = torch.rand((batch,), generator=generator, dtype=p.dtype,
                        device=p.device)

@@ -33,7 +33,11 @@ must launch once per control tick on ST, twice on the combined and cross
 configurations (``1 + TEST_ROLLOUT_STATE``), never on EVALUATE_DDPG and
 EVALUATE_DQN, and the dense DP must never run in the controller while
 ``USE_FAST_ST_SOLVER`` is True; otherwise the run stops with an error after
-recording the row.
+recording the row.  ``--family custom_dqn`` runs, beside the 39-row
+table, ``dqn_custom_default1``: ``configs/train_default_1.json`` as
+TRAIN_DQN with its committed network evaluated greedily through
+``tasks.evaluate_controller`` at B=512 (``evaluate_custom_dqn``), as
+``run_data.csv`` line 218 was made.
 
 ``--compare`` matches each configuration's newest port row to its JAX row
 and writes ``--out``: per family, crash, merge, mean |jerk|, time to merge
@@ -104,11 +108,24 @@ FAMILIES: Dict[str, List[str]] = {
         "low_traffic_2", "low_traffic_3")],
     "dqn": ["train_dqn_default_1"],
 }
+# beside the paper's 39 rows: the custom Double-DQN's committed network,
+# evaluated as run_data.csv line 218 was made (``CUSTOM_DQN``)
+CUSTOM_FAMILIES: Dict[str, List[str]] = {
+    "custom_dqn": ["dqn_custom_default1"]}
+ALL_FAMILIES = {**FAMILIES, **CUSTOM_FAMILIES}
 # train_dqn_default_1's row (LOG_DIR rainbow_default1) is its TRAIN_DQN
 # task's final evaluation of the extended network; the port evaluates the
 # converted network of that name
 OVERRIDES = {"train_dqn_default_1": dict(
     TASK="EVALUATE_DQN", MODEL_NAME="runs/rainbow_default1_extended")}
+# a table name with no config file of its own: the config it is made from
+# and its settings.  dqn_custom_default1 is ``scripts/train_custom_dqn.py``'s
+# run: configs/train_default_1.json as TRAIN_DQN, its selected network
+# evaluated greedily (``dqn.greedy_controller``) through
+# ``tasks.evaluate_controller`` at B=512 over NUM_EPISODES
+CUSTOM_DQN = {"dqn_custom_default1": ("train_default_1", dict(
+    TASK="TRAIN_DQN", LOG_DIR="dqn_custom_default1",
+    MODEL_NAME="runs/dqn_custom_default1"))}
 METRICS = (("crashed", "crash"), ("merged", "merge"),
            ("mean_abs_jerk", "mean abs jerk"),
            ("time_to_merge", "time to merge (s)"),
@@ -199,8 +216,9 @@ def name_config(name: str, model: Optional[str] = None):
     """The settings of ``configs/<name>.json`` with ``OVERRIDES``, and with
     ``model`` as its ``MODEL_NAME`` under ``model_log_dir``."""
     from rl_mpc_lanemerging_torch.config import Settings
-    cfg = Settings.load_from_file(config_path(name)).replace(
-        **OVERRIDES.get(name, {}))
+    base, custom = CUSTOM_DQN.get(name, (name, {}))
+    cfg = Settings.load_from_file(config_path(base)).replace(
+        **OVERRIDES.get(name, {}), **custom)
     if model:
         cfg = cfg.replace(MODEL_NAME=model,
                           LOG_DIR=model_log_dir(cfg.LOG_DIR, model))
@@ -353,7 +371,10 @@ def run_one(name: str, episodes: int, csv_path: str,
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with instrumented() as counts:
-        do_task(cfg, device="cuda", csv_path=csv_path)
+        if name in CUSTOM_DQN:
+            evaluate_custom_dqn(cfg, csv_path)
+        else:
+            do_task(cfg, device="cuda", csv_path=csv_path)
     wall = time.perf_counter() - t0
     columns = counts.pop("episode_columns")
     if episodes_out:
@@ -394,6 +415,20 @@ def run_one(name: str, episodes: int, csv_path: str,
     if cfg.USE_FAST_ST_SOLVER and counts["dense_dp_calls"]:
         raise RuntimeError(f"{name}: the dense DP ran in the controller")
     return record
+
+
+def evaluate_custom_dqn(cfg, csv_path: str, device="cuda") -> None:
+    """The committed custom DQN of ``MODEL_NAME`` (``checkpoint.load_dqn``)
+    through ``dqn.greedy_controller`` over ``NUM_EPISODES`` at
+    ``BATCH_SCENARIOS``, its row appended to ``csv_path``: the
+    evaluation of ``scripts/train_custom_dqn.py``, without the training."""
+    from rl_mpc_lanemerging_torch import tasks
+    from rl_mpc_lanemerging_torch.agents import dqn
+    from rl_mpc_lanemerging_torch.checkpoint import load_dqn
+    net = load_dqn(cfg.MODEL_NAME, device, committed=True)
+    agg = tasks.evaluate_controller(cfg, dqn.greedy_controller(net, cfg),
+                                    device=device, verbose=False)
+    agg.add_csv_data(csv_path)
 
 
 def run(names: List[str], episodes: int, csv_path: str,
@@ -529,7 +564,7 @@ def compare(csv_path: str, out_path: str,
         "TPU time appears here.", ""]
     cuts, missing = [], []
     flags_total = 0
-    for family, names in FAMILIES.items():
+    for family, names in ALL_FAMILIES.items():
         lines += [f"## {family}", "",
                   "| config | JAX yardstick | episodes (port) | batch | "
                   + " | ".join(label for _, label in METRICS)
@@ -566,8 +601,11 @@ def compare(csv_path: str, out_path: str,
             if _episodes(port) < EPISODES:
                 cuts.append(f"{name}: {_episodes(port)} episodes")
             rec = records.get((log_dir, port["TIME"]))
+            card = "not recorded" if rec is None else rec["card"] + (
+                f"; the card shared with {rec['shared_with']}"
+                if rec.get("shared_with") else "")
             timing.append(
-                f"| {name} | {rec['card'] if rec else 'not recorded'} | "
+                f"| {name} | {card} | "
                 f"{float(port['clock_time_per_step']):.6g} | "
                 + (f"{rec['control_ticks']} | "
                    f"{rec['s_per_control_tick']:.4f} | "
@@ -859,7 +897,7 @@ def main(argv=None) -> None:
     mode.add_argument("--dqn-chain", action="store_true",
                       help="TRAIN_DQN -> RESUME_DQN -> EVALUATE_DQN "
                            "through the CLI on the card")
-    ap.add_argument("--family", nargs="*", choices=sorted(FAMILIES),
+    ap.add_argument("--family", nargs="*", choices=sorted(ALL_FAMILIES),
                     default=[])
     ap.add_argument("--episodes", type=int, default=None,
                     help=f"default {EPISODES} (--run), 256 (--dqn-chain)")
@@ -878,10 +916,11 @@ def main(argv=None) -> None:
         dqn_chain(args.frames, args.episodes or 256)
     else:
         names = list(args.run) + [n for f in args.family
-                                  for n in FAMILIES[f]]
+                                  for n in ALL_FAMILIES[f]]
         if not names:
             names = [n for f in FAMILIES.values() for n in f]
-        unknown = [n for n in names if not os.path.exists(config_path(n))]
+        unknown = [n for n in names if not os.path.exists(
+            config_path(CUSTOM_DQN.get(n, (n,))[0]))]
         if unknown:
             raise SystemExit(f"no config for {unknown}")
         run(names, args.episodes or EPISODES, args.csv, args.model)

@@ -1,6 +1,6 @@
 """The port's learning curves on the card, seed by seed, and their
-comparison with the JAX package's curves on the CPU: DDPG (the default)
-and, with ``--trainer rainbow``, Rainbow.
+comparison with the JAX package's curves on the CPU: DDPG (the default),
+and, with ``--trainer rainbow`` or ``dqn``, Rainbow or the custom DQN.
 
     python scripts/train_curve_torch.py --run [--seeds 0 1 2 3]
         [--frames 4e5] [--out run_data_torch_train.jsonl]
@@ -87,6 +87,31 @@ seeds no worse than ``ddpg_default1_extended`` to one, and writes "DDPG
 learning curve, 1e6 + 1e6 frames" (stage 1 alone, by its own rule, until
 stage 2 has run).
 
+    python scripts/train_curve_torch.py --run --trainer dqn
+        [--seeds 0 1 2 3] [--train-episodes 150000] [--episodes 512]
+        [--handoffs runs_torch/curve_dqn] [--resume-from DIR]
+        [--time-limit SECONDS] [--handoff-after-evals N] [--out ...]
+    python scripts/train_curve_torch.py --compare --trainer dqn
+
+``--trainer dqn`` runs the custom Double-DQN's loop, ``dqn.train``'s
+(``dqn.train_episodes``), on ``configs/train_default_1.json`` as
+TRAIN_DQN, B=128, rounds of 200 ticks, to ``--train-episodes`` episodes
+with a 512-episode greedy evaluation every ``EVALUATION_PERIOD`` episodes.
+It runs in segments: a segment ends at the start of a round right after
+an evaluation, once the next evaluation period would pass ``--time-limit``
+or after ``--handoff-after-evals`` evaluations, in
+``<handoffs>/seed<k>_dqn_handoff<n>.pt`` (network, target, Adam state,
+the packed ring with its priorities, env and world, the draw generator,
+the loop's counters, the selection so far, the log), and appends a record
+of its progress (``"partial": true``) to ``--out``; the next run resumes
+from the last handoff in ``--resume-from`` bit for bit.  At the stage's
+end each seed writes ``<handoffs>/seed<k>.npz`` and evaluates it over
+4000 episodes at B=512, as ``run_data.csv`` line 218 was made.
+``--compare --trainer dqn`` writes "Custom DQN, 150,000 episodes": the
+rule for the four seeds against the one JAX run (prediction intervals),
+decided once every seed's stage has ended, and each seed's evaluations
+beside JAX's 73.
+
     python scripts/train_curve_torch.py --export [--seeds 0 1 2 3]
 
 ``--export`` writes the actor and critic of each seed's stage-2 selection
@@ -149,13 +174,15 @@ def _num(x) -> Optional[float]:
 
 
 class Recorder:
-    """The ``run`` of ``_train_frames``: keeps its scalar rows."""
+    """The ``run`` of ``_train_frames`` (or of ``dqn.train_episodes``,
+    whose step counts ``episodes``): keeps its scalar rows."""
 
-    def __init__(self):
+    def __init__(self, step: str = "frames"):
         self.rows: List[dict] = []
+        self.step = step
 
     def log_scalars(self, step, values) -> None:
-        self.rows.append({"frames": int(step),
+        self.rows.append({self.step: int(step),
                           **{k: _num(v) for k, v in values.items()}})
 
     def evals(self) -> List[dict]:
@@ -173,12 +200,12 @@ class Recorder:
 
 
 def timed_rounds(module, sync, name: str = "train_round",
-                 frames: Optional[List[int]] = None):
+                 frames: Optional[List[int]] = None, count: str = "frames"):
     """Wrap ``module.<name>`` (``train_round`` by default) so that each call
     is timed to the end of its work (``sync`` waits for it), and, where
-    ``frames`` is a list, the state's frames after each call go to it;
-    returns the list the seconds go to and the function that puts the real
-    one back."""
+    ``frames`` is a list, the state's ``count`` (its frames by default)
+    after each call goes to it; returns the list the seconds go to and the
+    function that puts the real one back."""
     real = getattr(module, name)
     seconds: List[float] = []
 
@@ -187,7 +214,7 @@ def timed_rounds(module, sync, name: str = "train_round",
         out = sync(real(*a, **kw))
         seconds.append(time.perf_counter() - t0)
         if frames is not None:
-            frames.append(int(out.frames))
+            frames.append(int(getattr(out, count)))
         return out
 
     setattr(module, name, timed)
@@ -313,17 +340,34 @@ def append_record(path: str, record: dict) -> None:
 
 def run_one(seed: int, frames: float, out: str, concurrent: int,
             rainbow_args: Optional[dict] = None,
-            ddpg_args: Optional[dict] = None) -> Optional[dict]:
+            ddpg_args: Optional[dict] = None,
+            dqn_args: Optional[dict] = None) -> Optional[dict]:
     """One seed on the card (one Rainbow stage where ``rainbow_args``
     holds ``run_rainbow_stage``'s stage, episodes and snapshots; one
     segment of a DDPG stage where ``ddpg_args`` holds ``run_ddpg_stage``'s
-    stage, episodes, handoffs, deadline and blocks), ``concurrent`` seeds
-    sharing it; appends and returns its record (None where a DDPG segment
-    ended before its stage)."""
+    stage, episodes, handoffs, deadline and blocks; one segment of the
+    custom DQN's stage, to ``frames`` episodes, where ``dqn_args`` holds
+    ``run_dqn_stage``'s other arguments), ``concurrent`` seeds sharing it;
+    appends and returns its record (None where a segment ended before its
+    stage)."""
     import torch
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // concurrent))
     torch.cuda.reset_peak_memory_stats()
-    if ddpg_args is not None:
+    if dqn_args is not None:
+        record = run_dqn_stage(seed, int(frames), **dqn_args)
+        if record is None:          # the segment's progress, as a record
+            progress = {**dqn_progress(dqn_args["handoffs"], [seed])[seed],
+                        "card": card_line(),
+                        "device": torch.cuda.get_device_name(0),
+                        "concurrent_seeds": concurrent,
+                        "max_memory_allocated_bytes":
+                        torch.cuda.max_memory_allocated()}
+            append_record(out, progress)
+            print(f"seed {seed}: {progress['card']}; max_memory_allocated "
+                  f"{progress['max_memory_allocated_bytes']} bytes",
+                  flush=True)
+            return None
+    elif ddpg_args is not None:
         record = run_ddpg_stage(seed, frames, **ddpg_args)
         if record is None:
             print(f"seed {seed}: {card_line()}; max_memory_allocated "
@@ -338,10 +382,11 @@ def run_one(seed: int, frames: float, out: str, concurrent: int,
                   max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
     append_record(out, record)
     stage = f" stage {record['stage']}" if "stage" in record else ""
-    line = (f"seed {seed}{stage}: {record['card']}; {record['frames']} "
-            f"frames in {record['rounds']} rounds, "
+    count = "episodes" if dqn_args is not None else "frames"
+    line = (f"seed {seed}{stage}: {record['card']}; {record[count]} "
+            f"{count} in {record['rounds']} rounds, "
             f"{record['s_per_round_median']:.2f} s per round ({concurrent} "
-            f"seeds at once); selected @ {record['selected']['frames']}")
+            f"seeds at once); selected @ {record['selected'][count]}")
     f = record.get("final")
     if f:
         line += (f": crash {f['crash']:.4f} merge {f['merge']:.4f} |jerk| "
@@ -355,10 +400,11 @@ def run_one(seed: int, frames: float, out: str, concurrent: int,
 
 def spawn(seeds: List[int], frames: float, out: str,
           extra: Optional[List[str]] = None, log: str = "train_curve",
-          meanwhile=None) -> None:
+          meanwhile=None, budget: str = "--frames") -> None:
     """Every seed at once, each in a process of its own (``extra``: more
-    arguments) that logs to ``<log>_seed<seed>.log`` beside ``out``;
-    ``meanwhile()``, where given, runs in this process while they do."""
+    arguments; ``frames`` goes to its ``budget`` option) that logs to
+    ``<log>_seed<seed>.log`` beside ``out``; ``meanwhile()``, where given,
+    runs in this process while they do."""
     out_dir = os.path.dirname(os.path.abspath(out))
     procs = []
     try:
@@ -366,7 +412,7 @@ def spawn(seeds: List[int], frames: float, out: str,
             fh = open(os.path.join(out_dir, f"{log}_seed{seed}.log"), "w")
             procs.append((seed, fh, subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--run",
-                 "--seeds", str(seed), "--frames", str(frames), "--out", out,
+                 "--seeds", str(seed), budget, str(frames), "--out", out,
                  "--concurrent", str(len(seeds))] + (extra or []),
                 stdout=fh, stderr=subprocess.STDOUT, cwd=REPO)))
         if meanwhile is not None:
@@ -388,7 +434,8 @@ def spawn(seeds: List[int], frames: float, out: str,
 
 def run(seeds: List[int], frames: float, out: str, concurrent: int,
         rainbow_args: Optional[dict] = None,
-        ddpg_args: Optional[dict] = None) -> None:
+        ddpg_args: Optional[dict] = None,
+        dqn_args: Optional[dict] = None) -> None:
     """The seeds without a record in ``out``: one in this process, several
     at once in processes of their own (``concurrent`` is set in those)."""
     import torch
@@ -396,7 +443,18 @@ def run(seeds: List[int], frames: float, out: str, concurrent: int,
         raise RuntimeError("--run trains on the card: "
                            "torch.cuda.is_available() is False")
     meanwhile = None
-    if ddpg_args is not None:
+    if dqn_args is not None:
+        todo = pending_stage(seeds, out, int(frames), 1, "dqn")
+        extra = ["--trainer", "dqn", "--episodes",
+                 str(dqn_args["eval_episodes"]), "--handoffs",
+                 dqn_args["handoffs"]]
+        for flag, name in (("--resume-from", "resume_from"),
+                           ("--deadline", "deadline"),
+                           ("--handoff-after-evals", "evals")):
+            if dqn_args.get(name) is not None:
+                extra += [flag, str(dqn_args[name])]
+        log = "train_curve_dqn"
+    elif ddpg_args is not None:
         stage = ddpg_args["stage"]
         todo = pending_stage(seeds, out, frames, stage, "ddpg")
         if stage == 2:          # refuse before any seed starts
@@ -432,11 +490,13 @@ def run(seeds: List[int], frames: float, out: str, concurrent: int,
     print(f"{card_line()}; {len(seeds) - len(todo)} of {len(seeds)} seeds "
           f"already in {out}", flush=True)
     if len(todo) > 1:
-        spawn(todo, frames, out, extra, log, meanwhile)
+        budget = ("--train-episodes",) if dqn_args is not None else ()
+        spawn(todo, frames, out, extra, log, meanwhile, *budget)
     elif todo:
         if meanwhile is not None:
             meanwhile()
-        run_one(todo[0], frames, out, concurrent, rainbow_args, ddpg_args)
+        run_one(todo[0], frames, out, concurrent, rainbow_args, ddpg_args,
+                dqn_args)
 
 
 # --- Rainbow: TRAIN_DQN's two stages, each in a chip call of its own -------
@@ -524,7 +584,7 @@ def save_selection(path: str, nets: Dict[str, dict], best: dict) -> None:
     """A stage's selected ``state_dict`` of each net under
     ``<net>/<layer>/<leaf>`` (the Flax layout of
     ``convert.tree_from_state_dict``), with the selection's score and
-    frames under ``best/``."""
+    frames (or episodes) under ``best/``."""
     from rl_mpc_lanemerging_torch import convert
     arrays = {f"{net}/{layer}/{leaf}": value
               for net, state_dict in nets.items()
@@ -533,7 +593,10 @@ def save_selection(path: str, nets: Dict[str, dict], best: dict) -> None:
               for leaf, value in leaves.items()}
     if best.get("score") is not None:
         arrays["best/score"] = np.asarray(best["score"], dtype=np.float64)
-        arrays["best/frames"] = np.asarray(best["frames"], dtype=np.int64)
+        for count in ("frames", "episodes"):
+            if count in best:
+                arrays[f"best/{count}"] = np.asarray(best[count],
+                                                     dtype=np.int64)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp.npz"
     np.savez(tmp, **arrays)
@@ -553,8 +616,10 @@ def load_selection(path: str):
                 trees.setdefault(net, {}).setdefault(layer, {})[leaf] = \
                     data[key]
         if "best/score" in data.files:
-            best = {"score": tuple(float(x) for x in data["best/score"]),
-                    "frames": int(data["best/frames"])}
+            best = {"score": tuple(float(x) for x in data["best/score"])}
+            for count in ("frames", "episodes"):
+                if f"best/{count}" in data.files:
+                    best[count] = int(data[f"best/{count}"])
     return {net: {"params": tree} for net, tree in trees.items()}, best
 
 
@@ -649,20 +714,24 @@ def run_rainbow_stage(seed: int, frames: float, stage: int = 1,
             "k1_launches": st_kernel.launches, "torch": torch.__version__}
 
 
-def read_stages(records: List[dict], trainer: str = "rainbow"
-                ) -> Dict[tuple, dict]:
-    """The newest record of each (seed, stage) of ``trainer``."""
-    return {(int(r["seed"]), int(r["stage"])): r for r in records
-            if r.get("trainer") == trainer and "stage" in r}
+def read_stages(records: List[dict], trainer: str = "rainbow",
+                partial: bool = False) -> Dict[tuple, dict]:
+    """The newest record of each (seed, stage) of ``trainer`` (the custom
+    DQN's one stage is stage 1): of the stage, or with ``partial``, of its
+    last segment."""
+    return {(int(r["seed"]), int(r.get("stage", 1))): r for r in records
+            if r.get("trainer") == trainer
+            and bool(r.get("partial")) == partial}
 
 
-def pending_stage(seeds: List[int], path: str, frames: float,
+def pending_stage(seeds: List[int], path: str, budget: float,
                   stage: int, trainer: str = "rainbow") -> List[int]:
     """The seeds without a record of ``stage`` of ``trainer`` in ``path``
-    at a budget of ``frames``."""
+    at a budget of ``budget`` frames (episodes for the custom DQN)."""
     done = read_stages(_lines(path), trainer)
+    key = "episodes_budget" if trainer == "dqn" else "frames_budget"
     return [s for s in seeds if (s, stage) not in done
-            or done[(s, stage)]["frames_budget"] < frames]
+            or done[(s, stage)][key] < budget]
 
 
 # --- DDPG: TRAIN_DDPG's two stages, each carried across runs by handoffs -
@@ -672,6 +741,14 @@ DDPG_FRAMES = 1e6             # valid frames per stage, as ddpg.train
 HANDOFFS = os.path.join(REPO, "runs_torch", "curve_ddpg")
 # the committed stage-2 selections (``seed<k>_stage2.npz``)
 SELECTIONS = os.path.join(REPO, "scripts", "curve_ddpg_stage2")
+# the committed selections of each stage
+PORT_SELECTIONS = {1: os.path.join(REPO, "scripts", "curve_ddpg_stage1"),
+                   2: SELECTIONS}
+# their evaluations by the JAX package's evaluator
+# (scripts/jax_eval_port_selections.py), and the section that holds them
+JAX_SELECTIONS = os.path.join(REPO, "scripts",
+                              "jax_eval_port_selections.json")
+SELECTIONS_SECTION = "## The port's selections under JAX's evaluator"
 DDPG_LOGGED = (LOGGED, os.path.join(REPO, "runs", "ddpg_default1_extended"))
 # the network of the paper's combined rows, evaluated beside the seeds
 DDPG_REFERENCE = "ddpg_default1_extended"
@@ -686,16 +763,24 @@ class SegmentEnd(Exception):
     limit would not hold the block, or the segment has run its blocks."""
 
 
-def handoff_path(handoffs: str, seed: int, stage: int, segment: int) -> str:
-    """The handoff that ends ``segment`` (1, 2, ...) of a seed's stage."""
-    return os.path.join(handoffs,
-                        f"seed{seed}_stage{stage}_handoff{segment}.pt")
+def _stage_label(stage) -> str:
+    """``stage<s>`` of a stage of ``ddpg.train``; a label such as ``dqn``
+    as it is."""
+    return f"stage{stage}" if isinstance(stage, int) else stage
 
 
-def handoff_files(folder: str, seed: int, stage: int) -> List[str]:
+def handoff_path(handoffs: str, seed: int, stage, segment: int) -> str:
+    """The handoff that ends ``segment`` (1, 2, ...) of a seed's stage
+    (``stage``: a stage of ``ddpg.train``, or ``DQN_STAGE``)."""
+    return os.path.join(handoffs, f"seed{seed}_{_stage_label(stage)}_"
+                        f"handoff{segment}.pt")
+
+
+def handoff_files(folder: str, seed: int, stage) -> List[str]:
     """A seed's handoffs of a stage in ``folder`` (each with its ``.json``
     beside it), the last segment's last."""
-    pattern = re.compile(rf"seed{seed}_stage{stage}_handoff(\d+)\.pt$")
+    pattern = re.compile(
+        rf"seed{seed}_{_stage_label(stage)}_handoff(\d+)\.pt$")
     found = [(int(m.group(1)), name) for name in (
         os.listdir(folder) if os.path.isdir(folder) else [])
         for m in [pattern.match(name)] if m]
@@ -798,22 +883,25 @@ def _unpack_rows(packed: dict) -> dict:
     succ = np.where(offsets == -2 ** 31, -1,
                     np.arange(n) + offsets.astype(np.int64))
     order = _chain_order(succ)
-    cols = np.cumsum(_words(packed["obs"].numpy(), n * dim).reshape(dim, n),
+    wdim = dim * dt["obs"].itemsize // _WORD.itemsize     # words a row
+    cols = np.cumsum(_words(packed["obs"].numpy(), n * wdim).reshape(wdim, n),
                      axis=1, dtype=_WORD)
-    obs = np.empty((n, dim), _WORD)
+    obs = np.empty((n, wdim), _WORD)
     obs[order] = cols.T
     obs = obs.view(dt["obs"])
     nxt = obs[np.maximum(succ, 0)].copy()
     orphans = succ < 0
     nxt[orphans] = _words(packed["orphans"].numpy(),
-                          int(orphans.sum()) * dim).view(
+                          int(orphans.sum()) * wdim).view(
         dt["next_obs"]).reshape(-1, dim)
     out = {"obs": obs, "next_obs": nxt,
            "terminal": np.frombuffer(lzma.decompress(bytes(
                packed["terminal"].numpy())), np.uint8).view(
                dt["terminal"]).copy()}
     for name in ("action", "reward", "discount", "priority"):
-        out[name] = _words(packed[name].numpy(), n).view(dt[name]).copy()
+        out[name] = _words(packed[name].numpy(),
+                           n * dt[name].itemsize // _WORD.itemsize).view(
+            dt[name]).copy()
     return out
 
 
@@ -941,22 +1029,34 @@ def _unsqueeze(tree):
     return tree
 
 
-def train_state_tree(state) -> dict:
-    """Everything of a ``DDPGTrainState`` that a handoff carries, on the
+# the fields of a trainer's state that a handoff carries: its modules and
+# optimisers (``state_dict``s), its counter tensors, and its plain values
+DDPG_FIELDS = {"nets": ("actor", "critic", "target_actor", "target_critic"),
+               "opts": ("actor_opt", "critic_opt"),
+               "counters": ("episodes", "frames", "ret_acc", "ep_ret_sum",
+                            "ep_ret_n"),
+               "plain": (("learning", bool), ("updates", int))}
+DQN_FIELDS = {"nets": ("net", "target_net"), "opts": ("opt",),
+              "counters": ("episodes", "loss_sum"),
+              "plain": (("grad_steps", int),)}
+
+
+def train_state_tree(state, fields: dict = DDPG_FIELDS) -> dict:
+    """Everything of a trainer's state (a ``DDPGTrainState`` by default,
+    ``DQN_FIELDS`` a ``DQNTrainState``) that a handoff carries, on the
     CPU, the replay as it stands (``world_rng`` is rebuilt from the
     config)."""
     return {
         "nets": {name: _to_host(getattr(state, name).state_dict())
-                 for name in ("actor", "critic", "target_actor",
-                              "target_critic")},
+                 for name in fields["nets"]},
         "opts": {name: _to_host(getattr(state, name).state_dict())
-                 for name in ("actor_opt", "critic_opt")},
+                 for name in fields["opts"]},
         "replay": _to_host(state.replay), "env": _to_host(state.env),
         "draws": state.draws.generator.get_state().clone(),
-        "counters": {name: _to_host(getattr(state, name)) for name in
-                     ("episodes", "frames", "ret_acc", "ep_ret_sum",
-                      "ep_ret_n")},
-        "learning": bool(state.learning), "updates": int(state.updates)}
+        "counters": {name: _to_host(getattr(state, name))
+                     for name in fields["counters"]},
+        **{name: kind(getattr(state, name))
+           for name, kind in fields["plain"]}}
 
 
 def handoff_key(seed: int, stage: int, batch: int, frames_budget: float,
@@ -969,14 +1069,15 @@ def handoff_key(seed: int, stage: int, batch: int, frames_budget: float,
 
 
 def save_handoff(path: str, state, key: dict, extra: dict,
-                 base: Optional[dict] = None) -> tuple:
-    """Write ``state`` (its ring packed, as a delta against ``base`` where
-    given: see ``pack_replay``), ``key`` and ``extra`` to ``path`` through
-    a temporary file, so that a run cut mid-write leaves the previous file
-    whole; returns (seconds, bytes)."""
+                 base: Optional[dict] = None,
+                 fields: dict = DDPG_FIELDS) -> tuple:
+    """Write ``state`` (its ``fields``; its ring packed, as a delta against
+    ``base`` where given: see ``pack_replay``), ``key`` and ``extra`` to
+    ``path`` through a temporary file, so that a run cut mid-write leaves
+    the previous file whole; returns (seconds, bytes)."""
     import torch
     t0 = time.perf_counter()
-    tree = train_state_tree(state)
+    tree = train_state_tree(state, fields)
     replay = pack_replay(state.replay, base)
     tree = _squeeze({**tree, "replay": None})
     tree["replay"] = replay
@@ -996,9 +1097,11 @@ def _read(path: str, key: dict) -> dict:
     return data
 
 
-def load_handoff(path: str, state, key: dict) -> dict:
-    """Overwrite ``state`` (a fresh ``ddpg.make_train_state`` of the same
-    config) from ``save_handoff``'s file (a delta with the file it names,
+def load_handoff(path: str, state, key: dict,
+                 fields: dict = DDPG_FIELDS) -> dict:
+    """Overwrite ``state`` (a fresh ``make_train_state`` of the same config
+    and trainer as ``fields``) from ``save_handoff``'s file (a delta with
+    the file it names,
     beside it); returns the file's other fields, and under ``ring`` the
     loaded ring as a ``base`` for ``save_handoff`` (None where the file
     was a delta).  Raises where a file was written for another ``key``."""
@@ -1021,28 +1124,38 @@ def load_handoff(path: str, state, key: dict) -> dict:
     state.draws.generator.set_state(tree["draws"])
     for name, value in tree["counters"].items():
         setattr(state, name, _like(getattr(state, name), value))
-    state.learning, state.updates = tree["learning"], tree["updates"]
+    for name, _ in fields["plain"]:
+        setattr(state, name, tree[name])
     data["ring"] = None if older is not None else {
         "name": os.path.basename(path), "ring": ring}
     return data
 
 
 def _host_best(best: dict) -> dict:
+    """A selection so far (its ``params`` a ``state_dict``, or a tuple of
+    them) as a handoff carries it."""
     out = {k: v for k, v in best.items() if k != "params"}
     if "score" in out:
         out["score"] = [float(x) for x in out["score"]]
     if best.get("params") is not None:
-        out["params"] = [_to_host(p) for p in best["params"]]
+        out["params"] = _to_host(best["params"])
     return out
 
 
 def _device_best(saved: dict, dev) -> dict:
+    """``_host_best``'s selection with its ``params`` on ``dev``."""
+    def to(tree):
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return tuple(to(v) for v in tree)
+        return tree.to(dev)
+
     best = dict(saved)
     if "score" in best:
         best["score"] = tuple(best["score"])
     if "params" in best:
-        best["params"] = tuple({k: v.to(dev) for k, v in p.items()}
-                               for p in best["params"])
+        best["params"] = to(best["params"])
     return best
 
 
@@ -1059,30 +1172,54 @@ def _ddpg_selection(path: str):
     return init, best
 
 
+def segment_end(seconds: List[float], eval_seconds: List[float], boundary,
+                deadline: Optional[float], periods: Optional[int],
+                counted: str, period: str, clock=time.time):
+    """The check made before each round of a segment: why the segment
+    ends there, or None.  ``boundary()`` gives the rounds of the period
+    just run where the next round starts a period (after a block of rounds,
+    or after an evaluation), else 0.  At such a boundary, after at least
+    one period of this segment, the segment ends where ``periods`` periods
+    of it have run ("<periods> <counted> run") or where the clock would pass
+    ``deadline`` before the next ``period`` (its rounds at the slowest of
+    the last period's), its evaluation, one more evaluation (the stage's
+    last) and the save are done."""
+    start = len(seconds)
+    seen = [0]
+
+    def check() -> Optional[str]:
+        rounds = boundary() if len(seconds) > start else 0
+        if not rounds:
+            return None
+        seen[0] += 1
+        if periods is not None and seen[0] >= periods:
+            return f"{periods} {counted} run"
+        if deadline is not None:
+            need = rounds * max(seconds[-rounds:]) \
+                + 2 * max(eval_seconds[-1:] or [0.0]) + HANDOFF_RESERVE_S
+            if clock() + need > deadline:
+                return f"the next {period} would pass the run's time limit"
+        return None
+    return check
+
+
 def segment_guard(module, seconds: List[float], eval_seconds: List[float],
                   block: int, deadline: Optional[float],
                   blocks: Optional[int], clock=time.time):
-    """Wrap ``module.train_round`` so that, at the start of a block of
-    ``block`` rounds after at least one block of this segment, it raises
-    ``SegmentEnd`` where ``blocks`` blocks have run or where the clock
-    would pass ``deadline`` before the block, its evaluation, one more
-    evaluation (the stage's last) and the save are done; returns the
-    function that puts the real one back."""
+    """Wrap ``module.train_round`` so that it raises ``SegmentEnd`` where
+    ``segment_end`` ends a segment at a boundary of ``block`` rounds
+    (``blocks`` of them, or ``deadline``); returns the function that puts
+    the real one back."""
+    check = segment_end(
+        seconds, eval_seconds,
+        lambda: block if len(seconds) % block == 0 else 0, deadline, blocks,
+        "blocks", "block", clock)
     real = module.train_round
-    start = len(seconds)
 
     def guarded(*a, **kw):
-        done_here = len(seconds) - start
-        if done_here and len(seconds) % block == 0:
-            if blocks is not None and done_here >= blocks * block:
-                raise SegmentEnd(f"{blocks} blocks run")
-            if deadline is not None:
-                last_eval = max(eval_seconds[-1:] or [0.0])
-                need = block * max(seconds[-block:]) + 2 * last_eval \
-                    + HANDOFF_RESERVE_S
-                if clock() + need > deadline:
-                    raise SegmentEnd("the next block would pass the run's "
-                                     "time limit")
+        why = check()
+        if why is not None:
+            raise SegmentEnd(why)
         return real(*a, **kw)
 
     module.train_round = guarded
@@ -1912,18 +2049,27 @@ def section_ddpg_stage1(port: Dict[int, dict], jax: Dict[int, dict]) -> str:
     return "\n".join(lines) + "\n"
 
 
-def compare_ddpg(out: str, yardsticks: str, acceptance: str) -> str:
+def compare_ddpg(out: str, yardsticks: str, acceptance: str,
+                 jax_selections: str = JAX_SELECTIONS) -> str:
     """Write the two-stage DDPG section into ``acceptance`` (stage 1 alone
-    while the port has no seed with both stages); returns the verdict."""
+    while the port has no seed with both stages), and after it, once both
+    stages have run, the port's selections under JAX's evaluator where
+    ``jax_selections`` (``scripts/jax_eval_port_selections.py``'s file)
+    is there; returns the verdict."""
     stages = read_stages(_lines(out), "ddpg")
     port = seeds_of(stages)
     with open(yardsticks) as fh:
         jax_stages = read_stages(json.load(fh)["records"], "ddpg")
     jax = seeds_of(jax_stages)
     reference = reference_record(out)
+    selections = None
     if port and jax and reference is not None:
         text = section_ddpg(port, jax, reference)
         marker = "**Verdict: the port's two-stage DDPG curve "
+        if os.path.exists(jax_selections):
+            with open(jax_selections) as fh:
+                selections = section_selections(
+                    stages, json.load(fh)["records"])[0]
     else:
         port1 = {s: r for (s, st), r in stages.items() if st == 1}
         jax1 = {s: r for (s, st), r in jax_stages.items() if st == 1}
@@ -1933,7 +2079,593 @@ def compare_ddpg(out: str, yardsticks: str, acceptance: str) -> str:
         text = section_ddpg_stage1(port1, jax1)
         marker = "**Verdict (stage 1): the port's DDPG stage 1 "
     put_section(acceptance, DDPG_SECTION, text)
+    if selections is not None:
+        put_section(acceptance, SELECTIONS_SECTION, selections)
     return text.split(marker)[1].split()[0]
+
+
+# --- The custom DQN: dqn.train's 150,000 episodes, by handoffs --------------
+
+DQN_OVERRIDES = {"TASK": "TRAIN_DQN", "LOG_DIR": "dqn_custom_default1"}
+DQN_EPISODES = 150_000        # NUM_TRAINING_EPISODES
+DQN_EVAL_EPISODES = 512       # max(NUM_EVALUATION_EPISODES, 512)
+DQN_FINAL_EPISODES = 4000     # run_data.csv line 218's evaluation ...
+DQN_FINAL_BATCH = 512         # ... at its batch
+DQN_TICKS = 200               # env ticks a round, as dqn.train
+DQN_STAGE = "dqn"             # the handoffs' label: seed<k>_dqn_handoff<n>
+DQN_HANDOFFS = os.path.join(REPO, "runs_torch", "curve_dqn")
+DQN_LOGGED = os.path.join(REPO, "runs", "dqn_custom_default1")
+DQN_LINE = 218                # the selected network's row in run_data.csv
+DQN_SECTION = "## Custom DQN, 150,000 episodes"
+# how ``rl/replay.py::sample`` scans the PER priorities on a card, kept in
+# each record: records of "float32" came from a scan whose order of
+# additions can change from call to call, and cannot be rerun bit for bit
+DQN_PER_SCAN = "float64"
+
+
+def dqn_config(seed: int, batch: int, overrides=None):
+    """``configs/train_default_1.json`` as
+    ``scripts/train_custom_dqn_torch.py`` trains it (TASK TRAIN_DQN,
+    LOG_DIR dqn_custom_default1) at ``SEED`` ``seed`` and
+    ``BATCH_SCENARIOS`` ``batch``."""
+    return seed_config(seed, batch, {**DQN_OVERRIDES, **(overrides or {})})
+
+
+def dqn_handoff_key(seed: int, batch: int, episodes_budget: int,
+                    eval_episodes: int, env_ticks: int,
+                    overrides=None) -> dict:
+    """What a custom-DQN handoff was written for; a load refuses any
+    other."""
+    return {"trainer": "dqn", "config": CONFIG, **DQN_OVERRIDES,
+            "seed": seed, "batch": batch,
+            "episodes_budget": int(episodes_budget),
+            "eval_episodes": eval_episodes, "env_ticks": env_ticks,
+            "overrides": json.dumps(overrides or {}, sort_keys=True)}
+
+
+def dqn_evals(rows: List[dict], stats: List[dict]) -> List[dict]:
+    """Each selection evaluation: ``final_stats`` of it, with the episodes
+    trained when it ran in place of its own."""
+    steps = [r["episodes"] for r in rows if "eval_crash" in r]
+    return [{**s, "episodes": e} for e, s in zip(steps, stats)]
+
+
+def dqn_selection_path(folder: str, seed: int) -> str:
+    return os.path.join(folder, f"seed{seed}.npz")
+
+
+def run_dqn_stage(seed: int, episodes: int = DQN_EPISODES,
+                  batch: int = BATCH, eval_episodes: int = DQN_EVAL_EPISODES,
+                  final_episodes: int = DQN_FINAL_EPISODES,
+                  final_batch: int = DQN_FINAL_BATCH,
+                  env_ticks: int = DQN_TICKS, handoffs: str = DQN_HANDOFFS,
+                  device="cuda", overrides=None,
+                  deadline: Optional[float] = None,
+                  evals: Optional[int] = None,
+                  resume_from: Optional[str] = None) -> Optional[dict]:
+    """One segment of ``dqn.train``'s loop (``dqn.train_episodes``) for
+    one seed on ``device``, to ``episodes`` episodes with an
+    ``eval_episodes``-episode selection evaluation every
+    ``EVALUATION_PERIOD`` episodes.  A seed with a handoff in
+    ``resume_from`` (``handoffs`` by default) resumes from its last.  The
+    segment ends at the start of a round right after an evaluation
+    (``segment_end``: ``deadline``, on the ``time.time`` clock, or
+    ``evals``); it then writes its handoff, whole, to ``handoffs`` and
+    returns None.  At the stage's end it writes the selection to
+    ``<handoffs>/seed<k>.npz``, evaluates it over ``final_episodes``
+    episodes at ``final_batch`` scenarios as ``run_data.csv`` line 218 was
+    made, removes its handoffs from ``handoffs`` and returns the record
+    (without the card's fields)."""
+    import torch
+    from rl_mpc_lanemerging_torch import tasks
+    from rl_mpc_lanemerging_torch._device import (pin_fp32_matmul,
+                                                  resolve_device)
+    from rl_mpc_lanemerging_torch.agents import dqn
+    from rl_mpc_lanemerging_torch.agents.budget import grad_steps_per_round
+    from rl_mpc_lanemerging_torch.ops import st_kernel
+    dev = resolve_device(device)
+    pin_fp32_matmul()
+    cfg = dqn_config(seed, batch, overrides)
+    key = dqn_handoff_key(seed, batch, episodes, eval_episodes, env_ticks,
+                          overrides)
+    resume_from = resume_from or handoffs
+    st_kernel.launches = 0
+    t0 = time.perf_counter()
+    worlds, world_rng = tasks.make_worlds(cfg, device=dev)
+    state = dqn.make_train_state(cfg, worlds, world_rng, tasks.seed_of(cfg))
+    grad_steps = grad_steps_per_round(cfg.TRAINING_STEPS_PER_EPISODE, batch,
+                                      env_ticks)
+    found = handoff_files(resume_from, seed, DQN_STAGE)
+    run = Recorder("episodes")
+    saved = {"loop": dqn.new_loop(), "seconds": [], "episodes_after": [],
+             "eval_seconds": [], "eval_rounds": [], "eval_stats": [],
+             "rows": [], "best": {}, "segments": []}
+    load_s = None
+    if found:
+        t1 = time.perf_counter()
+        saved = load_handoff(found[-1], state, key, DQN_FIELDS)
+        load_s = time.perf_counter() - t1
+        if os.path.exists(found[-1] + ".json"):
+            with open(found[-1] + ".json") as fh:
+                saved["segments"][-1].update(json.load(fh))
+    run.rows = saved["rows"]
+    best = _device_best(saved["best"], dev)
+    loop = saved["loop"]
+
+    def sync(out):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return out
+
+    episodes_after = list(saved["episodes_after"])
+    seconds, restore = timed_rounds(dqn, sync, frames=episodes_after,
+                                    count="episodes")
+    seconds.extend(saved["seconds"])
+    eval_seconds, eval_rounds, eval_stats = (list(saved[k]) for k in (
+        "eval_seconds", "eval_rounds", "eval_stats"))
+
+    def evaluate(*a):
+        """``dqn.eval_greedy``, timed to the end of its work, with the
+        rounds done so far and its statistics kept."""
+        t1 = time.perf_counter()
+        agg = sync(dqn.eval_greedy(*a))
+        eval_seconds.append(time.perf_counter() - t1)
+        eval_rounds.append(len(seconds))
+        eval_stats.append(final_stats(agg, eval_episodes))
+        return agg
+
+    def after_eval() -> int:
+        """The rounds since the evaluation before, where the last round
+        ran one."""
+        if not eval_rounds or eval_rounds[-1] != len(seconds):
+            return 0
+        return eval_rounds[-1] - (eval_rounds[-2] if len(eval_rounds) > 1
+                                  else 0)
+
+    check = segment_end(seconds, eval_seconds, after_eval, deadline, evals,
+                        "evaluations", "evaluation period")
+    why: List[Optional[str]] = [None]
+
+    def stop() -> bool:
+        why[0] = check()
+        return why[0] is not None
+
+    segment = {"rounds_from": len(seconds),
+               "episodes_from": int(state.episodes), "load_s": load_s}
+    try:
+        state = dqn.train_episodes(cfg, state, episodes, grad_steps,
+                                   eval_episodes, dev, run, best, loop,
+                                   env_ticks=env_ticks, stop=stop,
+                                   evaluate=evaluate)
+    finally:
+        restore()
+    ended = why[0]
+    segment.update(rounds_to=len(seconds), episodes=int(state.episodes),
+                   wall_s=time.perf_counter() - t0,
+                   k1_launches=st_kernel.launches)
+    segments = saved["segments"] + [segment]
+    if ended is not None:
+        segment["ended"] = ended
+        path = handoff_path(handoffs, seed, DQN_STAGE, len(segments))
+        save_s, size = save_handoff(path, state, key, {
+            "loop": loop, "seconds": seconds,
+            "episodes_after": episodes_after, "eval_seconds": eval_seconds,
+            "eval_rounds": eval_rounds, "eval_stats": eval_stats,
+            "rows": run.rows, "best": _host_best(best),
+            "segments": segments}, fields=DQN_FIELDS)
+        with open(path + ".json", "w") as fh:      # the save, measured
+            json.dump({"save_s": save_s, "handoff_bytes": size}, fh)
+        print(f"seed {seed} dqn: segment {len(segments)} ended after "
+              f"{len(seconds)} rounds at {int(state.episodes)} episodes "
+              f"({ended}); handoff {size} bytes in {save_s:.2f} s; K1 "
+              f"launches {st_kernel.launches}", flush=True)
+        return None
+    selected = best.get("params") or {
+        k: v.detach().clone() for k, v in state.net.state_dict().items()}
+    save_selection(dqn_selection_path(handoffs, seed), {"q": selected}, best)
+    t1 = time.perf_counter()
+    net = dqn._net(cfg).to(dev)
+    net.load_state_dict(selected)
+    fcfg = cfg.replace(BATCH_SCENARIOS=final_batch,
+                       NUM_EPISODES=final_episodes)
+    agg = tasks.evaluate_controller(fcfg, dqn.greedy_controller(net, fcfg),
+                                    device=dev, verbose=False)
+    final = {**final_stats(agg, final_episodes), "batch": final_batch}
+    final_s = time.perf_counter() - t1
+    for done in handoff_files(handoffs, seed, DQN_STAGE):
+        for name in (done, done + ".json"):
+            if os.path.exists(name):
+                os.remove(name)
+    return {
+        "trainer": "dqn", "seed": seed, "per_scan": DQN_PER_SCAN,
+        "config": CONFIG, **DQN_OVERRIDES,
+        "batch": batch, "episodes_budget": episodes,
+        "episodes": int(state.episodes), "rounds": len(seconds),
+        "s_per_round": seconds,
+        "s_per_round_median": statistics.median(seconds[1:] or seconds),
+        "episodes_per_round": [b - a for a, b in zip([0] + episodes_after,
+                                                     episodes_after)],
+        "env_ticks": env_ticks, "grad_steps_per_round": grad_steps,
+        "grad_steps": state.grad_steps, "eval_episodes": eval_episodes,
+        "s_per_eval": eval_seconds, "evals": dqn_evals(run.rows, eval_stats),
+        "progress": [r for r in run.rows if "epsilon" in r],
+        "selected": {"episodes": best.get("episodes"),
+                     "score": None if best.get("score") is None
+                     else [_num(x) for x in best["score"]]},
+        "final": final, "final_s": final_s, "segments": segments,
+        "train_s": sum(s["wall_s"] for s in segments),
+        "wall_s": sum(s["wall_s"] for s in segments) + final_s,
+        "k1_launches": sum(s.get("k1_launches") or 0
+                           for s in segments[:-1]) + st_kernel.launches,
+        "torch": torch.__version__}
+
+
+def peek_handoff(path: str) -> dict:
+    """A custom-DQN handoff's fields other than the train state (its key,
+    loop counters, seconds, evaluations, log, selection and segments) and
+    the state's grad steps, without a state to load it into."""
+    import torch
+    data = torch.load(path, map_location="cpu", weights_only=True)
+    data["grad_steps"] = data.pop("state")["grad_steps"]
+    return _unsqueeze(data)
+
+
+def dqn_progress(folder: str, seeds=SEEDS) -> Dict[int, dict]:
+    """Each seed's last handoff in ``folder`` as a partial record
+    (``"partial": true``): the episodes and rounds so far, the seconds of
+    each round and evaluation, the evaluations, the selection so far and
+    the segments."""
+    out = {}
+    for seed in seeds:
+        found = handoff_files(folder, seed, DQN_STAGE)
+        if not found:
+            continue
+        data = peek_handoff(found[-1])
+        segments = data["segments"]
+        if os.path.exists(found[-1] + ".json"):
+            with open(found[-1] + ".json") as fh:
+                segments[-1].update(json.load(fh))
+        best = data["best"]
+        out[seed] = {"trainer": "dqn", "partial": True, "seed": seed,
+                     "per_scan": DQN_PER_SCAN,
+                     **{k: data["key"][k] for k in ("config", "TASK",
+                                                    "batch",
+                                                    "episodes_budget")},
+                     "episodes": segments[-1]["episodes"],
+                     "rounds": len(data["seconds"]),
+                     "s_per_round": data["seconds"],
+                     "s_per_round_median": statistics.median(
+                         data["seconds"][1:] or data["seconds"]),
+                     "episodes_per_round": [b - a for a, b in zip(
+                         [0] + data["episodes_after"],
+                         data["episodes_after"])],
+                     "grad_steps": data["grad_steps"],
+                     "s_per_eval": data["eval_seconds"],
+                     "evals": dqn_evals(data["rows"], data["eval_stats"]),
+                     "progress": [r for r in data["rows"] if "epsilon" in r],
+                     "selected": {"episodes": best.get("episodes"),
+                                  "score": best.get("score")},
+                     "segments": segments,
+                     "handoff": os.path.basename(found[-1]),
+                     "k1_launches": sum(g.get("k1_launches") or 0
+                                        for g in segments)}
+    return out
+
+
+def logged_dqn(folder: str = DQN_LOGGED) -> List[dict]:
+    """The JAX package's selection evaluations of ``dqn.train`` at
+    150,000 episodes, logged on the TPU in ``scalars.csv``: under the
+    progress header (step, epsilon, loss) an evaluation row is (episodes,
+    crash, |jerk|, merge), its keys sorted."""
+    with open(os.path.join(folder, "scalars.csv"), newline="") as fh:
+        return [{"episodes": int(row[0]), "crash": float(row[1]),
+                 "jerk": float(row[2]), "merge": float(row[3])}
+                for row in list(csv.reader(fh))[1:] if len(row) == 4]
+
+
+def jax_dqn_row() -> dict:
+    """``run_data.csv`` line 218: the JAX package's selected custom DQN
+    over 4000 episodes at B=512."""
+    from paper_table_torch import JAX_CSV, read_rows
+    return next(r for r in read_rows(JAX_CSV) if r["_line"] == DQN_LINE)
+
+
+def first_clean(evals: List[dict]) -> Optional[int]:
+    """The episodes of the first evaluation with crash 0 and merge 1."""
+    return next((int(e["episodes"]) for e in evals
+                 if e["crash"] == 0.0 and e["merge"] == 1.0), None)
+
+
+def prediction_interval(values: List[float], k: float = 3.0) -> tuple:
+    """mean ± k SD sqrt(1 + 1/n) of ``values`` (sample SD): where one more
+    draw of the same kind falls."""
+    n = len(values)
+    mean = statistics.fmean(values)
+    half = k * statistics.stdev(values) * math.sqrt(1 + 1 / n)
+    return mean - half, mean + half
+
+
+def decide_dqn(finals: List[dict], reach: List[Optional[int]],
+               line: dict, jax_reach: int) -> dict:
+    """The rule for the custom DQN's four port seeds against the one JAX
+    run: (1) at least 3 of 4 final evaluations reach crash <= 0.005 and
+    merge >= 0.995; (2) line 218's |jerk| and time to merge lie within the
+    port seeds' prediction intervals; (3) JAX's first episode of crash 0
+    and merge 1 lies within the port seeds' interval of theirs, reported
+    and not decided where fewer than 2 port seeds reach it.  Returns each
+    part and the verdict."""
+    learned = sum(1 for f in finals if _learned(f))
+    parts = {"learned": {"count": learned, "of": len(finals),
+                         "holds": learned >= len(finals) - 1}}
+    for name, metric in (("jerk", "mean_abs_jerk"),
+                         ("t_merge", "time_to_merge")):
+        values = [f[name] for f in finals if f.get(name) is not None]
+        lo, hi = prediction_interval(values) if len(values) > 1 \
+            else (math.nan, math.nan)
+        jax = float(line[metric])
+        parts[name] = {"jax": jax, "interval": [lo, hi],
+                       "holds": lo <= jax <= hi}
+    reached = [r for r in reach if r is not None]
+    if len(reached) >= 2:
+        lo, hi = prediction_interval(reached)
+        parts["reach"] = {"jax": jax_reach, "interval": [lo, hi],
+                          "reached": len(reached),
+                          "holds": lo <= jax_reach <= hi}
+    else:
+        parts["reach"] = {"jax": jax_reach, "interval": None,
+                          "reached": len(reached), "holds": None}
+    agrees = all(p["holds"] is not False for p in parts.values())
+    return {**parts, "verdict": "agrees" if agrees else "differs"}
+
+
+def _yes(holds: Optional[bool]) -> str:
+    return "-" if holds is None else "yes" if holds else "no"
+
+
+def _eval_cell(e: Optional[dict]) -> str:
+    if e is None:
+        return "-"
+    return f"{e['episodes']:,}: {e['crash']:.4f} / {e['merge']:.4f} / " \
+        f"{e['jerk']:.3f}"
+
+
+def section_dqn(records: Dict[int, dict], progress: Dict[int, dict],
+                jax: List[dict], line: dict) -> tuple:
+    """The "Custom DQN, 150,000 episodes" section, and its verdict (None
+    while the stage has not ended for every seed)."""
+    seeds = sorted(set(records) | set(progress))
+    sides = {s: records.get(s) or progress[s] for s in seeds}
+    jax_reach = first_clean(jax)
+    ended = bool(seeds) and all(s in records for s in seeds) \
+        and len(seeds) == len(SEEDS)
+    lines = [
+        DQN_SECTION, "",
+        "Generated by `python scripts/train_curve_torch.py --compare "
+        "--trainer dqn` from the port's custom-DQN records in "
+        "`run_data_torch_train.jsonl` (seeds 0-3 of "
+        "`configs/train_default_1.json` with TASK TRAIN_DQN at B=128, "
+        f"rounds of {DQN_TICKS} ticks, `dqn.train_episodes` on the card, "
+        "carried across chip calls by handoffs), or, while a seed's stage "
+        "runs, from the record of its last segment; and from the "
+        "JAX package's one run of `dqn.train` to 150,000 episodes "
+        f"(`runs/dqn_custom_default1/scalars.csv`, {len(jax)} evaluations "
+        "of 512 episodes on a TPU; its selected network is "
+        f"`run_data.csv` line {DQN_LINE}, 4000 episodes at B=512).", "",
+        "**The rule, written before the first segment.** The JAX side is "
+        "one run, so the port's four seeds give a prediction interval, mean "
+        "± 3 SD sqrt(1 + 1/4): (1) at least 3 of 4 port seeds' final "
+        "4000-episode evaluations (B=512) reach crash <= 0.005 and merge "
+        f">= 0.995; (2) line {DQN_LINE}'s |jerk| and time to merge lie "
+        "within the port seeds' intervals; (3) the episode at which JAX "
+        "first evaluates crash 0 and merge 1 lies within the port seeds' "
+        "interval of the same, reported and not decided where fewer than 2 "
+        "port seeds reach it.", "",
+        "| seed | episodes | rounds | segments (rounds, episodes) | s per "
+        "round (median) | s per evaluation (median) | first crash 0, merge "
+        "1 | selected @ episodes | final crash | final merge | final "
+        "\\|jerk\\| | final time to merge (s) | card |",
+        "| --- " * 13 + "|"]
+    for s in seeds:
+        r = sides[s]
+        final = r.get("final") or {}
+        segs = "; ".join(f"{g['rounds_to']}, {g['episodes']:,}"
+                         for g in r["segments"])
+        lines.append(
+            f"| {s} | {r['episodes']:,} | {r['rounds']} | {segs} | "
+            f"{r['s_per_round_median']:.2f} | "
+            f"{statistics.median(r['s_per_eval']):.2f} | "
+            f"{first_clean(r['evals']) or '-'} | "
+            f"{(r.get('selected') or {}).get('episodes') or '-'} | "
+            f"{_stat(final, 'crash')} | {_stat(final, 'merge')} | "
+            f"{_stat(final, 'jerk')} | {_stat(final, 't_merge')} | "
+            f"{r.get('card', '-')} |")
+    old_scan = [s for s in seeds if sides[s].get("per_scan") == "float32"]
+    if old_scan:
+        lines += ["", "Seeds " + ", ".join(map(str, old_scan)) + ": records "
+                  "made while `rl/replay.py::sample` scanned the PER "
+                  "priorities in float32 on the card, in an order of "
+                  "additions that can change from call to call: their "
+                  "segments cannot be rerun bit for bit (`\"per_scan\": "
+                  "\"float32\"`; the scan is float64 on the card since)."]
+    lines += ["", f"JAX: first crash 0, merge 1 at {jax_reach:,} episodes; "
+              f"line {DQN_LINE}: crash {float(line['crashed']):.4f}, merge "
+              f"{float(line['merged']):.4f}, |jerk| "
+              f"{float(line['mean_abs_jerk']):.4f} ± "
+              f"{float(line['mean_abs_jerk_std']):.4f}, time to merge "
+              f"{float(line['time_to_merge']):.3f} ± "
+              f"{float(line['time_to_merge_std']):.3f} s.", ""]
+    verdict = None
+    if ended:
+        finals = [records[s]["final"] for s in seeds]
+        d = decide_dqn(finals, [first_clean(records[s]["evals"])
+                                for s in seeds], line, jax_reach)
+        verdict = d["verdict"]
+        iv = {k: d[k]["interval"] for k in ("jerk", "t_merge", "reach")}
+        lines += [
+            "| part | JAX | port | holds |", "| --- | --- | --- | --- |",
+            f"| (1) seeds with crash <= 0.005, merge >= 0.995 | 1 of 1 | "
+            f"{d['learned']['count']} of {d['learned']['of']} | "
+            f"{_yes(d['learned']['holds'])} |",
+            f"| (2) \\|jerk\\| | {d['jerk']['jax']:.4f} | "
+            f"{iv['jerk'][0]:.4f} to {iv['jerk'][1]:.4f} | "
+            f"{_yes(d['jerk']['holds'])} |",
+            f"| (2) time to merge (s) | {d['t_merge']['jax']:.3f} | "
+            f"{iv['t_merge'][0]:.3f} to {iv['t_merge'][1]:.3f} | "
+            f"{_yes(d['t_merge']['holds'])} |",
+            f"| (3) first crash 0, merge 1 (episodes) | {jax_reach:,} | "
+            + (f"{iv['reach'][0]:,.0f} to {iv['reach'][1]:,.0f}"
+               if iv["reach"] else
+               f"{d['reach']['reached']} of 4 reach: not decided")
+            + f" | {_yes(d['reach']['holds'])} |",
+            "", f"**Verdict: the port's custom DQN {verdict} with the JAX "
+            "package's.**", ""]
+    else:
+        lines += ["**Not decided: the stage has not ended for every seed "
+                  "(the rule is decided in the run that ends it).**", ""]
+    evals = {s: sides[s]["evals"] for s in seeds}
+    n = max([len(jax)] + [len(v) for v in evals.values()])
+    lines += ["Each evaluation, in order (episodes: crash / merge / "
+              "\\|jerk\\|, 512 episodes at the evaluation tick):", "",
+              "| # | JAX | " + " | ".join(f"port seed {s}" for s in seeds)
+              + " |", "| --- " * (2 + len(seeds)) + "|"]
+    for i in range(n):
+        cells = [_eval_cell(jax[i] if i < len(jax) else None)] + [
+            _eval_cell(evals[s][i] if i < len(evals[s]) else None)
+            for s in seeds]
+        lines.append(f"| {i + 1} | " + " | ".join(cells) + " |")
+    return "\n".join(lines) + "\n", verdict
+
+
+def compare_dqn(out: str, acceptance: str) -> str:
+    """Write the custom-DQN section into ``acceptance``; returns its
+    verdict ("is not decided yet" while a seed's stage runs)."""
+    records = {s: r for (s, _), r in read_stages(_lines(out), "dqn").items()}
+    progress = {s: p for (s, _), p in read_stages(_lines(out), "dqn",
+                                                  partial=True).items()
+                if s not in records}
+    if not records and not progress:
+        raise SystemExit(f"no custom-DQN record in {out}")
+    text, verdict = section_dqn(records, progress, logged_dqn(),
+                                jax_dqn_row())
+    put_section(acceptance, DQN_SECTION, text)
+    return verdict or "is not decided yet"
+
+
+# --- DDPG: the port's selections under JAX's evaluator ---------------------
+
+SELECTION_METRICS = ("crash", "merge", "jerk", "t_merge", "score")
+
+
+def _rate_sem(p: float, n: int) -> float:
+    """The aggregator's SEM of a rate ``p`` over ``n`` episodes (sample
+    SD over sqrt(n))."""
+    return math.sqrt(p * (1 - p) * n / (n - 1) / n) if n > 1 else 0.0
+
+
+def _score_sem(e: dict, n: int) -> float:
+    """The SEM of ``snapshot_score``'s first term, from its parts'
+    (timeouts a rate of their own)."""
+    timeout = max(1.0 - e["merge"] - e["crash"], 0.0)
+    return math.sqrt(e["crash_sem"] ** 2 + 0.04 * _rate_sem(timeout, n) ** 2
+                     + 1e-4 * e["jerk_sem"] ** 2
+                     + 4e-6 * (e["t_merge_sem"] or 0.0) ** 2)
+
+
+def port_selection_eval(stages: Dict[tuple, dict], seed: int,
+                        stage: int) -> Optional[dict]:
+    """The port's own evaluation of a seed's stage selection: the record's
+    evaluation at the selection's frames (stage 1's, where stage 2 kept
+    stage 1's selection), or None where there is none."""
+    sel = stages[(seed, stage)]["selected"]
+    record = stages.get((seed, sel["stage"]), {})
+    return next((e for e in record.get("evals", [])
+                 if e["frames"] == sel["frames"]), None)
+
+
+def hold_selection(port: dict, jax: dict, n: int) -> dict:
+    """Per metric of ``SELECTION_METRICS``: port, JAX, the difference's SEM
+    (the port's records keep means alone: rates take their binomial SEM,
+    |jerk| and time to merge the JAX evaluation's) and whether |port -
+    JAX| <= 3 SEM."""
+    p = {"crash": port["crash"], "merge": port["merge"],
+         "jerk": port["jerk"], "t_merge": port["t_merge"]}
+    p.update(crash_sem=_rate_sem(p["crash"], n),
+             merge_sem=_rate_sem(p["merge"], n), jerk_sem=jax["jerk_sem"],
+             t_merge_sem=jax["t_merge_sem"])
+    from rl_mpc_lanemerging_torch.agents.budget import snapshot_score
+    p["score"] = snapshot_score(p["crash"], p["merge"], p["jerk"],
+                                p["t_merge"])[0]
+    out = {}
+    for m in SELECTION_METRICS:
+        if m == "score":
+            pv, jv = p["score"], jax["score"][0]
+            sem = math.hypot(_score_sem(p, n), _score_sem(jax, n))
+        else:
+            pv, jv = p[m], jax[m]
+            sem = math.hypot(p[m + "_sem"] or 0.0, jax[m + "_sem"] or 0.0)
+        out[m] = {"port": pv, "jax": jv, "sem": sem,
+                  "holds": abs(pv - jv) <= 3 * sem}
+    return out
+
+
+def section_selections(stages: Dict[tuple, dict], jax: List[dict]) -> tuple:
+    """The section "The port's selections under JAX's evaluator" and the
+    count of networks that hold."""
+    lines = [
+        SELECTIONS_SECTION, "",
+        "Generated by `python scripts/train_curve_torch.py --compare "
+        "--trainer ddpg` from `scripts/jax_eval_port_selections.json` "
+        "(`python scripts/jax_eval_port_selections.py`: each committed "
+        "selection `scripts/curve_ddpg_stage<s>/seed<k>_stage<s>.npz` loaded "
+        "into the JAX actor and evaluated on the CPU by JAX's evaluator as a "
+        "selection is, 2048 episodes at B=128 and `SEED` k) and the port's "
+        "own evaluation of the same network in its stage record. A network "
+        "holds where each of crash, merge, \\|jerk\\|, time to merge and the "
+        "selection score lies within 3 SEM of the difference, SEM = "
+        "sqrt(SEM_JAX^2 + SEM_port^2); the port's records keep means alone, "
+        "so its crash and merge take their binomial SEM and its \\|jerk\\| "
+        "and time to merge the JAX evaluation's, and a score's SEM combines "
+        "its parts' by `snapshot_score`'s weights. At least 7 of 8 holding "
+        "puts DDPG's \"differs\" on the selection at four seeds; fewer, on "
+        "the port's evaluation path. Cells: port / JAX.", "",
+        "| seed | stage | selected (stage, frames) | crash | merge | "
+        "\\|jerk\\| | time to merge (s) | score | holds |",
+        "| --- " * 9 + "|"]
+    held = total = 0
+    for r in sorted(jax, key=lambda r: (r["stage"], r["seed"])):
+        seed, stage = r["seed"], r["stage"]
+        port = port_selection_eval(stages, seed, stage) \
+            if (seed, stage) in stages else None
+        if port is None:
+            continue
+        total += 1
+        h = hold_selection(port, r["eval"], r["eval"]["episodes"])
+        ok = all(v["holds"] for v in h.values())
+        held += ok
+        sel = stages[(seed, stage)]["selected"]
+        lines.append(
+            f"| {seed} | {stage} | {sel['stage']}, {sel['frames']:,} | "
+            + " | ".join(f"{h[m]['port']:.4f} / {h[m]['jax']:.4f}"
+                         + ("" if h[m]["holds"] else " (flagged)")
+                         for m in SELECTION_METRICS)
+            + f" | {'yes' if ok else 'no'} |")
+    finals = [r for r in jax if "final" in r and (r["seed"], 2) in stages]
+    if finals:
+        lines += ["", "The stage-2 selections' final evaluations, 1024 "
+                  "episodes at the config's tick, reported (port / JAX, "
+                  "mean ± SEM):", "",
+                  "| seed | crash | merge | \\|jerk\\| | time to merge (s) |",
+                  "| --- " * 5 + "|"]
+        for r in sorted(finals, key=lambda r: r["seed"]):
+            f = stages[(r["seed"], 2)]["final"]
+            lines.append(f"| {r['seed']} | " + " | ".join(
+                f"{_stat(f, m)} / {_stat(r['final'], m)}"
+                for m in ("crash", "merge", "jerk", "t_merge")) + " |")
+    verdict = ("selection at four seeds: JAX's evaluator scores the port's "
+               "networks as the port's does" if held >= total - 1 else
+               "the port's evaluation path differs from JAX's")
+    lines += ["", f"**{held} of {total} networks hold: {verdict}.**", ""]
+    return "\n".join(lines) + "\n", held
 
 
 def main(argv=None) -> None:
@@ -1947,7 +2679,8 @@ def main(argv=None) -> None:
                       help="write each seed's DDPG stage-2 selection "
                       "(scripts/curve_ddpg_stage2) as the network of "
                       "MODEL_NAME runs/curve_ddpg_seed<k>_extended")
-    ap.add_argument("--trainer", choices=("ddpg", "rainbow"), default="ddpg")
+    ap.add_argument("--trainer", choices=("ddpg", "rainbow", "dqn"),
+                    default="ddpg")
     ap.add_argument("--seeds", type=int, nargs="+", default=list(SEEDS))
     ap.add_argument("--frames", type=float, default=None,
                     help="valid frames (per stage): 4e5 (ddpg stage 1 "
@@ -1961,25 +2694,34 @@ def main(argv=None) -> None:
     ap.add_argument("--episodes", type=int, default=None,
                     help="rainbow: episodes of each selection evaluation "
                     "and of the final one (1024); ddpg --stage: of each "
-                    "selection evaluation (2048)")
+                    "selection evaluation (2048); dqn: of each selection "
+                    "evaluation (512)")
+    ap.add_argument("--train-episodes", type=int, default=DQN_EPISODES,
+                    help="dqn: the stage's training episodes (150000)")
     ap.add_argument("--snapshots", default=SNAPSHOTS, metavar="DIR",
                     help="rainbow: where stage 1 leaves its selected "
                     "snapshots and stage 2 finds them")
-    ap.add_argument("--handoffs", default=HANDOFFS, metavar="DIR",
+    ap.add_argument("--handoffs", default=None, metavar="DIR",
                     help="ddpg --stage: where each seed's handoff and stage "
-                    "1's selection are written and found")
+                    "1's selection are written and found "
+                    "(runs_torch/curve_ddpg); dqn: where each seed's "
+                    "handoff and selection are written "
+                    "(runs_torch/curve_dqn)")
     ap.add_argument("--resume-from", default=None, metavar="DIR",
-                    help="ddpg --stage: where each seed's handoffs (and, "
-                    "for stage 2, stage 1's selection) are found, if not "
-                    "in --handoffs: a run can then bring back only what it "
-                    "writes")
+                    help="ddpg --stage, dqn: where each seed's handoffs "
+                    "(and, for DDPG's stage 2, stage 1's selection) are "
+                    "found, if not in --handoffs: a run can then bring back "
+                    "only what it writes")
     ap.add_argument("--time-limit", type=float, default=None,
                     metavar="SECONDS",
-                    help="ddpg --stage: end each seed's segment, with a "
-                    "handoff, before this many seconds from the start")
+                    help="ddpg --stage, dqn: end each seed's segment, with "
+                    "a handoff, before this many seconds from the start")
     ap.add_argument("--handoff-after-blocks", type=int, default=None,
                     metavar="N", help="ddpg --stage: end each seed's "
                     "segment, with a handoff, after N blocks of 5 rounds")
+    ap.add_argument("--handoff-after-evals", type=int, default=None,
+                    metavar="N", help="dqn: end each seed's segment, with a "
+                    "handoff, after N selection evaluations")
     ap.add_argument("--deadline", type=float, default=None,
                     help=argparse.SUPPRESS)   # set in a spawned seed
     ap.add_argument("--concurrent", type=int, default=1,
@@ -1996,7 +2738,24 @@ def main(argv=None) -> None:
             print(f"seed {seed}: MODEL_NAME {model} -> {path}")
         return
     rainbow = args.trainer == "rainbow"
-    staged = not rainbow and args.stage is not None
+    staged = args.trainer == "ddpg" and args.stage is not None
+    deadline = args.deadline
+    if deadline is None and args.time_limit is not None:
+        deadline = time.time() + args.time_limit
+    if args.trainer == "dqn":
+        if args.compare:
+            verdict = compare_dqn(args.out, args.acceptance)
+            print(f"wrote the section of {args.acceptance}: the port's "
+                  f"custom DQN {verdict} with the JAX package's")
+        else:
+            run(args.seeds, args.train_episodes, args.out, args.concurrent,
+                dqn_args=dict(
+                    eval_episodes=args.episodes or DQN_EVAL_EPISODES,
+                    handoffs=os.path.abspath(args.handoffs or DQN_HANDOFFS),
+                    deadline=deadline, evals=args.handoff_after_evals,
+                    resume_from=args.resume_from and os.path.abspath(
+                        args.resume_from)))
+        return
     if args.compare:
         if staged and args.stage != "both":
             ap.error("--compare --trainer ddpg takes --stage both or none")
@@ -2017,14 +2776,12 @@ def main(argv=None) -> None:
                  episodes=args.episodes or RAINBOW_EPISODES,
                  snapshots=os.path.abspath(args.snapshots)))
     elif staged:
-        deadline = args.deadline
-        if deadline is None and args.time_limit is not None:
-            deadline = time.time() + args.time_limit
         run(args.seeds, args.frames or DDPG_FRAMES, args.out,
             args.concurrent, ddpg_args=dict(
                 stage=int(args.stage),
                 eval_episodes=args.episodes or EVAL_EPISODES,
-                handoffs=os.path.abspath(args.handoffs), deadline=deadline,
+                handoffs=os.path.abspath(args.handoffs or HANDOFFS),
+                deadline=deadline,
                 blocks=args.handoff_after_blocks,
                 resume_from=args.resume_from and os.path.abspath(
                     args.resume_from)))

@@ -478,3 +478,23 @@ def test_mesh_collectives_on_cuda_tensors():
         np.testing.assert_array_equal(out["avg"][1], np.arange(4.0) * 1.5)
         assert out["min"] == 10
         np.testing.assert_array_equal(out["weight"], np.zeros((2, 3)))
+
+
+@pytest.mark.cuda
+def test_per_draws_on_card_do_not_depend_on_the_scan_order():
+    """A float32 PER ring's draws on the card: its float64 scan is exact,
+    so repeated draws agree and equal those of the same exact scan on the
+    CPU."""
+    _need_card()
+    from rl_mpc_lanemerging_torch.rl import replay as rb
+    g = torch.Generator().manual_seed(7)
+    ring = rb.init_replay(50000, 20, discrete=True, device="cuda")
+    pri = (torch.clamp(torch.rand(ring.capacity, generator=g) * 5, max=4.0)
+           + 1e-6) ** 0.5
+    ring.priority[:ring.capacity] = pri.cuda()
+    u = torch.rand(4096, generator=g)
+    draws = [rb.sample(ring, 4096, u=u.cuda())[0].cpu() for _ in range(20)]
+    c = torch.cumsum(pri, 0, dtype=torch.float64)
+    want = torch.searchsorted(c, u * c[-1], right=True).clamp_(
+        0, ring.capacity - 1)
+    assert all(torch.equal(d, want) for d in draws)
