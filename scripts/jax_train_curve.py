@@ -159,7 +159,7 @@ def run_rainbow(seed: int, frames: float, batch: int = BATCH,
             rec.update(final=final_stats(agg, episodes),
                        final_s=time.perf_counter() - t1)
         rec.update(train_s=train_s, wall_s=time.perf_counter() - t0,
-                   platform="cpu", cpu_count=os.cpu_count(),
+                   platform="cpu", cpu_count=len(os.sched_getaffinity(0)),
                    jax=jax.__version__)
         records.append(rec)
         if on_stage is not None:

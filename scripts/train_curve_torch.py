@@ -49,15 +49,18 @@ stage 1 at ``LEARNING_RATE`` from epsilon 1, stage 2 at a tenth of it at
 frames with an ``--episodes``-episode selection evaluation every 10 rounds,
 the selection carried from stage 1 into stage 2 through
 ``<snapshots>/seed<k>_stage1.npz`` (the snapshot in ``convert``'s layout,
-and its score and frames).  Stage 2 then evaluates the final selected
-snapshot over ``--episodes`` episodes as EVALUATE_DQN does.  Each (seed,
-stage) appends one record, with ``"trainer": "rainbow"`` and its
-``"stage"``, to ``--out``; a (seed, stage) recorded at this budget is
-skipped.  ``--compare --trainer rainbow`` holds the final snapshot's crash,
-merge, |jerk|, time to merge and selection score, and stage 1's selection
-score, to 3 standard errors of the difference, and the counts of seeds no
-worse than ``rainbow_default1_extended`` to one, and writes the section
-"Rainbow learning curve".
+and its score and frames).  Stage 2 then writes the final selection to
+``<snapshots>/seed<k>_stage2.npz`` and evaluates it over ``--episodes``
+episodes as EVALUATE_DQN does.  Each (seed, stage) appends one record,
+with ``"trainer": "rainbow"`` and its ``"stage"``, to ``--out``; a (seed,
+stage) recorded at this budget is skipped.  ``--compare --trainer
+rainbow``, over the seeds both sides have, holds the final snapshot's
+crash, merge, |jerk|, time to merge and selection score, and stage 1's
+selection score, to 3 standard errors of the difference, and the counts of
+seeds no worse than ``rainbow_default1_extended`` and of seeds whose final
+snapshot merges below 0.9 each to one in four seeds; it writes the section
+"Rainbow learning curve", with the port's selections under JAX's evaluator
+(``scripts/jax_eval_port_rainbow.json``) where they are there.
 
     python scripts/train_curve_torch.py --run --trainer ddpg --stage 1|2
         [--seeds 0 1 2 3] [--frames 1e6] [--episodes 2048]
@@ -107,10 +110,14 @@ of its progress (``"partial": true``) to ``--out``; the next run resumes
 from the last handoff in ``--resume-from`` bit for bit.  At the stage's
 end each seed writes ``<handoffs>/seed<k>.npz`` and evaluates it over
 4000 episodes at B=512, as ``run_data.csv`` line 218 was made.
+Each record keeps each segment's PER scan on the card (``"per_scan"``),
+and a seed's newest record replaces its older partial ones.
 ``--compare --trainer dqn`` writes "Custom DQN, 150,000 episodes": the
 rule for the four seeds against the one JAX run (prediction intervals),
 decided once every seed's stage has ended, and each seed's evaluations
-beside JAX's 73.
+beside JAX's 73.  ``--peek --trainer dqn [--resume-from DIR]`` (no card)
+loads each seed's last handoff into a train state on the CPU and prints
+where its stage stands.
 
     python scripts/train_curve_torch.py --export [--seeds 0 1 2 3]
 
@@ -338,6 +345,28 @@ def append_record(path: str, record: dict) -> None:
         fcntl.flock(fh, fcntl.LOCK_UN)
 
 
+def put_record(path: str, record: dict, drop) -> None:
+    """Append ``record`` to ``path`` in place of the records for which
+    ``drop(r)`` holds, under the same lock as ``append_record``."""
+    with open(path, "a+") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        fh.seek(0)
+        kept = [line for line in fh.read().splitlines()
+                if line.strip() and not drop(json.loads(line))]
+        fh.seek(0)
+        fh.truncate()
+        fh.write("".join(line + "\n" for line in kept + [json.dumps(record)]))
+        fh.flush()
+        fcntl.flock(fh, fcntl.LOCK_UN)
+
+
+def dqn_partials_of(seed: int):
+    """``put_record``'s ``drop`` for a custom-DQN seed's partial records:
+    the newest record keeps every segment."""
+    return lambda r: (r.get("trainer") == "dqn" and r.get("partial")
+                      and int(r["seed"]) == seed)
+
+
 def run_one(seed: int, frames: float, out: str, concurrent: int,
             rainbow_args: Optional[dict] = None,
             ddpg_args: Optional[dict] = None,
@@ -362,7 +391,7 @@ def run_one(seed: int, frames: float, out: str, concurrent: int,
                         "concurrent_seeds": concurrent,
                         "max_memory_allocated_bytes":
                         torch.cuda.max_memory_allocated()}
-            append_record(out, progress)
+            put_record(out, progress, dqn_partials_of(seed))
             print(f"seed {seed}: {progress['card']}; max_memory_allocated "
                   f"{progress['max_memory_allocated_bytes']} bytes",
                   flush=True)
@@ -380,7 +409,10 @@ def run_one(seed: int, frames: float, out: str, concurrent: int,
     record.update(card=card_line(), device=torch.cuda.get_device_name(0),
                   concurrent_seeds=concurrent,
                   max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
-    append_record(out, record)
+    if dqn_args is not None:
+        put_record(out, record, dqn_partials_of(seed))
+    else:
+        append_record(out, record)
     stage = f" stage {record['stage']}" if "stage" in record else ""
     count = "episodes" if dqn_args is not None else "frames"
     line = (f"seed {seed}{stage}: {record['card']}; {record[count]} "
@@ -650,10 +682,10 @@ def run_rainbow_stage(seed: int, frames: float, stage: int = 1,
     ``frames`` valid frames with an ``episodes``-episode selection
     evaluation every ``eval_every`` rounds.  Stage 1 saves its selected
     snapshot and selection to ``snapshot_path(snapshots, seed)``; stage 2
-    starts from there (it raises where the file is missing) and evaluates
-    the final selected snapshot over ``episodes`` episodes as
-    ``rainbow.evaluate`` does.  Returns the record (without the card's
-    fields)."""
+    starts from there (it raises where the file is missing), saves the
+    final selection beside it (``seed<k>_stage2.npz``) and evaluates it
+    over ``episodes`` episodes as ``rainbow.evaluate`` does.  Returns the
+    record (without the card's fields)."""
     import torch
     from rl_mpc_lanemerging_torch import tasks
     from rl_mpc_lanemerging_torch._device import (pin_fp32_matmul,
@@ -703,6 +735,7 @@ def run_rainbow_stage(seed: int, frames: float, stage: int = 1,
     if stage == 1:
         save_stage1(path, selected, best)
     else:
+        save_stage1(snapshot_path(snapshots, seed, stage=2), selected, best)
         t1 = time.perf_counter()
         net = rainbow._net_from(cfg, selected, dev)
         agg = tasks.evaluate_controller(cfg, rainbow.greedy_controller(
@@ -1641,6 +1674,14 @@ RAINBOW_METRICS = (("crash", "crash"), ("merge", "merge"),
                    ("stage1_score", "stage 1's selection score"))
 
 
+WEAK_MERGE = 0.9              # a final selection merging below it is weak
+RAINBOW_COUNTS = ("no_worse", "weak")
+# the port's Rainbow selections evaluated by the JAX package's evaluator
+# (scripts/jax_eval_port_selections.py --trainer rainbow)
+JAX_RAINBOW_SELECTIONS = os.path.join(REPO, "scripts",
+                                      "jax_eval_port_rainbow.json")
+
+
 def _score(final: dict) -> float:
     """``snapshot_score``'s weighted term of an evaluation's statistics."""
     from rl_mpc_lanemerging_torch.agents.budget import snapshot_score
@@ -1680,19 +1721,35 @@ def quantities(stage1: dict, stage2: dict) -> dict:
 
 def summarize_rainbow(seeds: Dict[int, tuple], reference: float) -> dict:
     """Per quantity of the rule, (mean, SEM) over the seeds (a time to
-    merge counts where the seed merged at all); and how many seeds' final
-    snapshot scores no worse than ``reference``."""
+    merge counts where the seed merged at all); how many seeds' final
+    snapshot scores no worse than ``reference``, and how many merge below
+    ``WEAK_MERGE`` at their final evaluation."""
     qs = [quantities(*pair) for pair in seeds.values()]
     out = {name: _mean_sem([q[name] for q in qs if q[name] is not None])
            for name, _ in RAINBOW_METRICS}
     out["no_worse"] = sum(q["final_score"] <= reference for q in qs)
+    out["weak"] = sum(q["merge"] < WEAK_MERGE for q in qs)
     out["n"] = len(qs)
     return out
 
 
 def decide_rainbow(port: dict, jax: dict):
-    """The two-stage rule (``_rule``), of Rainbow and of DDPG."""
+    """The two-stage rule (``_rule``), of DDPG."""
     return _rule(port, jax, RAINBOW_METRICS, "no_worse")
+
+
+def decide_rainbow_seeds(port: dict, jax: dict):
+    """Rainbow's rule over its seeds: each quantity of ``_rule``, and the
+    counts of seeds no worse than the reference and of weak seeds (a final
+    merge below ``WEAK_MERGE``) each within one in four of the fewer seeds
+    (one at four seeds a side, two at eight).  Returns the quantities'
+    rows, whether each count holds, the allowance and the verdict."""
+    rows, _, _ = _rule(port, jax, RAINBOW_METRICS, "no_worse")
+    allow = max(1, min(port["n"], jax["n"]) // 4)
+    counts = {name: abs(port[name] - jax[name]) <= allow
+              for name in RAINBOW_COUNTS}
+    agrees = all(r[-1] for r in rows) and all(counts.values())
+    return rows, counts, allow, "agrees" if agrees else "differs"
 
 
 def logged_rainbow(folders=RAINBOW_LOGGED) -> Dict[str, List[dict]]:
@@ -1741,7 +1798,7 @@ def section_rainbow(port: Dict[int, tuple], jax: Dict[int, tuple],
     """The "Rainbow learning curve" section of the acceptance file."""
     ps, js = summarize_rainbow(port, reference), summarize_rainbow(
         jax, reference)
-    rows, counts_hold, verdict = decide_rainbow(ps, js)
+    rows, counts, allow, verdict = decide_rainbow_seeds(ps, js)
     s1, s2 = next(iter(port.values()))
     lines = [
         RAINBOW_SECTION, "",
@@ -1790,19 +1847,26 @@ def section_rainbow(port: Dict[int, tuple], jax: Dict[int, tuple],
               "(lower is better); and the counts of seeds whose final "
               "snapshot scores no worse than `rainbow_default1_extended` "
               f"under the same evaluation ({reference:.4f}: the port's row "
-              f"of LOG_DIR `{REFERENCE_LOG_DIR}` in `run_data_torch.csv`) may "
-              "differ by one at most.", "",
+              f"of LOG_DIR `{REFERENCE_LOG_DIR}` in `run_data_torch.csv`), and "
+              "of seeds whose final snapshot merges below "
+              f"{WEAK_MERGE:g} at its final evaluation, may each differ by "
+              "one in four seeds at most (one at four seeds a side, two at "
+              "eight).", "",
               "| quantity | port mean ± SEM | JAX mean ± SEM | difference | "
               "3 SEM of the difference | holds |", "| --- " * 6 + "|"]
     for label, p, j, diff, bar, holds in rows:
         lines.append(f"| {label} | {_pm(p)} | {_pm(j)} | {diff:.4f} | "
                      f"{bar:.4f} | {'yes' if holds else 'no'} |")
-    lines += [f"| seeds no worse than rainbow_default1_extended | "
-              f"{ps['no_worse']} of {ps['n']} | {js['no_worse']} of "
-              f"{js['n']} | {abs(ps['no_worse'] - js['no_worse'])} | at most "
-              f"1 | {'yes' if counts_hold else 'no'} |", "",
-              f"**Verdict: the port's Rainbow curve {verdict} with the JAX "
-              "package's.**", "",
+    for name, label in (("no_worse", "seeds no worse than "
+                         "rainbow_default1_extended"),
+                        ("weak", "seeds whose final snapshot merges below "
+                         f"{WEAK_MERGE:g}")):
+        lines.append(
+            f"| {label} | {ps[name]} of {ps['n']} | {js[name]} of "
+            f"{js['n']} | {abs(ps[name] - js[name])} | at most {allow} | "
+            f"{'yes' if counts[name] else 'no'} |")
+    lines += ["", f"**Verdict: the port's Rainbow curve {verdict} with the "
+              "JAX package's.**", "",
               "### The JAX package's logged run on the TPU (context)", "",
               "Selection evaluations of 1024 episodes that the JAX package "
               "logged on the TPU in `runs/rainbow_default1/scalars.csv` "
@@ -1817,16 +1881,28 @@ def section_rainbow(port: Dict[int, tuple], jax: Dict[int, tuple],
     return "\n".join(lines) + "\n"
 
 
-def compare_rainbow(out: str, yardsticks: str, acceptance: str) -> str:
-    """Write the Rainbow section into ``acceptance``; returns the
+def compare_rainbow(out: str, yardsticks: str, acceptance: str,
+                    jax_selections: str = JAX_RAINBOW_SELECTIONS) -> str:
+    """Write the Rainbow section into ``acceptance`` over every seed with
+    both stages on both sides, and in it, where ``jax_selections``
+    (``scripts/jax_eval_port_selections.py --trainer rainbow``'s file) is
+    there, the port's selections under JAX's evaluator; returns the
     verdict."""
-    port = seeds_of(read_stages(_lines(out)))
+    stages = read_stages(_lines(out))
+    port = seeds_of(stages)
     with open(yardsticks) as fh:
         jax = seeds_of(read_stages(json.load(fh)["records"]))
-    if not port or not jax:
-        raise SystemExit(f"no seed with both stages: port {sorted(port)}, "
-                         f"JAX {sorted(jax)}")
-    text = section_rainbow(port, jax, reference_score())
+    both = set(port) & set(jax)
+    if not both:
+        raise SystemExit(f"no seed with both stages on both sides: port "
+                         f"{sorted(port)}, JAX {sorted(jax)}")
+    text = section_rainbow({s: port[s] for s in sorted(both)},
+                           {s: jax[s] for s in sorted(both)},
+                           reference_score())
+    if os.path.exists(jax_selections):
+        with open(jax_selections) as fh:
+            text += "\n" + section_selections(
+                stages, json.load(fh)["records"], "rainbow")[0]
     put_section(acceptance, RAINBOW_SECTION, text)
     return text.split("**Verdict: the port's Rainbow curve ")[1].split()[0]
 
@@ -2098,9 +2174,24 @@ DQN_LOGGED = os.path.join(REPO, "runs", "dqn_custom_default1")
 DQN_LINE = 218                # the selected network's row in run_data.csv
 DQN_SECTION = "## Custom DQN, 150,000 episodes"
 # how ``rl/replay.py::sample`` scans the PER priorities on a card, kept in
-# each record: records of "float32" came from a scan whose order of
-# additions can change from call to call, and cannot be rerun bit for bit
+# each segment of a record: segments of "float32" came from a scan whose
+# order of additions can change from call to call, and cannot be rerun bit
+# for bit.  A segment saved before segments kept their scan ran under the
+# float32 scan (``OLD_PER_SCAN``).
 DQN_PER_SCAN = "float64"
+OLD_PER_SCAN = "float32"
+
+
+def segment_scans(record: dict) -> List[str]:
+    """The PER scan of each segment of a custom-DQN record (a record made
+    before segments kept it holds one ``per_scan`` for all)."""
+    return [g.get("per_scan") or record.get("per_scan") or OLD_PER_SCAN
+            for g in record["segments"]]
+
+
+def _seconds(values: List[float]) -> List[float]:
+    """Seconds as the records print them (to the hundredth)."""
+    return [round(float(v), 2) for v in values]
 
 
 def dqn_config(seed: int, batch: int, overrides=None):
@@ -2188,6 +2279,8 @@ def run_dqn_stage(seed: int, episodes: int = DQN_EPISODES,
         if os.path.exists(found[-1] + ".json"):
             with open(found[-1] + ".json") as fh:
                 saved["segments"][-1].update(json.load(fh))
+        for g in saved["segments"]:
+            g.setdefault("per_scan", OLD_PER_SCAN)
     run.rows = saved["rows"]
     best = _device_best(saved["best"], dev)
     loop = saved["loop"]
@@ -2227,11 +2320,14 @@ def run_dqn_stage(seed: int, episodes: int = DQN_EPISODES,
     why: List[Optional[str]] = [None]
 
     def stop() -> bool:
+        if len(seconds) > segment["rounds_from"]:   # each round, logged
+            print(f"  round {len(seconds)}: {seconds[-1]:.3f} s", flush=True)
         why[0] = check()
         return why[0] is not None
 
     segment = {"rounds_from": len(seconds),
-               "episodes_from": int(state.episodes), "load_s": load_s}
+               "episodes_from": int(state.episodes), "load_s": load_s,
+               "per_scan": DQN_PER_SCAN}
     try:
         state = dqn.train_episodes(cfg, state, episodes, grad_steps,
                                    eval_episodes, dev, run, best, loop,
@@ -2277,17 +2373,17 @@ def run_dqn_stage(seed: int, episodes: int = DQN_EPISODES,
             if os.path.exists(name):
                 os.remove(name)
     return {
-        "trainer": "dqn", "seed": seed, "per_scan": DQN_PER_SCAN,
-        "config": CONFIG, **DQN_OVERRIDES,
+        "trainer": "dqn", "seed": seed, "config": CONFIG, **DQN_OVERRIDES,
         "batch": batch, "episodes_budget": episodes,
         "episodes": int(state.episodes), "rounds": len(seconds),
-        "s_per_round": seconds,
+        "s_per_round": _seconds(seconds),
         "s_per_round_median": statistics.median(seconds[1:] or seconds),
         "episodes_per_round": [b - a for a, b in zip([0] + episodes_after,
                                                      episodes_after)],
         "env_ticks": env_ticks, "grad_steps_per_round": grad_steps,
         "grad_steps": state.grad_steps, "eval_episodes": eval_episodes,
-        "s_per_eval": eval_seconds, "evals": dqn_evals(run.rows, eval_stats),
+        "s_per_eval": _seconds(eval_seconds),
+        "evals": dqn_evals(run.rows, eval_stats),
         "progress": [r for r in run.rows if "epsilon" in r],
         "selected": {"episodes": best.get("episodes"),
                      "score": None if best.get("score") is None
@@ -2306,8 +2402,64 @@ def peek_handoff(path: str) -> dict:
     the state's grad steps, without a state to load it into."""
     import torch
     data = torch.load(path, map_location="cpu", weights_only=True)
-    data["grad_steps"] = data.pop("state")["grad_steps"]
+    state = data.pop("state")
+    data["grad_steps"] = state["grad_steps"]
+    data["state_draws_bytes"] = int(state["draws"].numel())
     return _unsqueeze(data)
+
+
+CARD_GENERATOR_BYTES = 16     # a CUDA generator's state: seed, offset
+
+
+class _HeldGeneratorState:
+    """Stands in for a card's ``torch.Generator`` on the CPU: keeps the
+    state it is given."""
+
+    def set_state(self, state) -> None:
+        self.state = state
+
+
+def check_handoffs(folder: str, seeds=SEEDS, batch: int = BATCH,
+                   episodes: int = DQN_EPISODES,
+                   eval_episodes: int = DQN_EVAL_EPISODES,
+                   env_ticks: int = DQN_TICKS) -> Dict[int, dict]:
+    """Each seed's last custom-DQN handoff in ``folder``, read by
+    ``peek_handoff`` and loaded by ``load_handoff`` (with this seed's
+    ``dqn_handoff_key``) into a train state on the CPU: where the stage
+    stands (episodes, rounds, grad steps, the loop's counters, the
+    selection so far, the ring's fill, each segment's end).  Raises where
+    a seed has no handoff or its file refuses to load."""
+    from rl_mpc_lanemerging_torch import tasks
+    from rl_mpc_lanemerging_torch.agents import dqn
+    out = {}
+    for seed in seeds:
+        found = handoff_files(folder, seed, DQN_STAGE)
+        if not found:
+            raise FileNotFoundError(f"seed {seed}: no handoff in {folder}")
+        peek = peek_handoff(found[-1])
+        cfg = dqn_config(seed, batch)
+        worlds, world_rng = tasks.make_worlds(cfg, device="cpu")
+        state = dqn.make_train_state(cfg, worlds, world_rng,
+                                     tasks.seed_of(cfg))
+        if peek["state_draws_bytes"] == CARD_GENERATOR_BYTES:
+            # a card's Philox state, which only a card's generator takes
+            state.draws.generator = _HeldGeneratorState()
+        saved = load_handoff(found[-1], state, dqn_handoff_key(
+            seed, batch, episodes, eval_episodes, env_ticks), DQN_FIELDS)
+        best = saved["best"]
+        out[seed] = {
+            "handoff": os.path.basename(found[-1]),
+            "episodes": int(state.episodes),
+            "rounds": len(saved["seconds"]),
+            "grad_steps": int(state.grad_steps),
+            **{k: int(v) for k, v in saved["loop"].items()},
+            "best_score": best.get("score"),
+            "best_episodes": best.get("episodes"),
+            "ring_fill": int(state.replay.size),
+            "draws_bytes": peek["state_draws_bytes"],
+            "segments": [(g["rounds_to"], g["episodes"])
+                         for g in peek["segments"]]}
+    return out
 
 
 def dqn_progress(folder: str, seeds=SEEDS) -> Dict[int, dict]:
@@ -2325,22 +2477,23 @@ def dqn_progress(folder: str, seeds=SEEDS) -> Dict[int, dict]:
         if os.path.exists(found[-1] + ".json"):
             with open(found[-1] + ".json") as fh:
                 segments[-1].update(json.load(fh))
+        for g in segments:
+            g.setdefault("per_scan", OLD_PER_SCAN)
         best = data["best"]
         out[seed] = {"trainer": "dqn", "partial": True, "seed": seed,
-                     "per_scan": DQN_PER_SCAN,
                      **{k: data["key"][k] for k in ("config", "TASK",
                                                     "batch",
                                                     "episodes_budget")},
                      "episodes": segments[-1]["episodes"],
                      "rounds": len(data["seconds"]),
-                     "s_per_round": data["seconds"],
+                     "s_per_round": _seconds(data["seconds"]),
                      "s_per_round_median": statistics.median(
                          data["seconds"][1:] or data["seconds"]),
                      "episodes_per_round": [b - a for a, b in zip(
                          [0] + data["episodes_after"],
                          data["episodes_after"])],
                      "grad_steps": data["grad_steps"],
-                     "s_per_eval": data["eval_seconds"],
+                     "s_per_eval": _seconds(data["eval_seconds"]),
                      "evals": dqn_evals(data["rows"], data["eval_stats"]),
                      "progress": [r for r in data["rows"] if "epsilon" in r],
                      "selected": {"episodes": best.get("episodes"),
@@ -2418,6 +2571,11 @@ def decide_dqn(finals: List[dict], reach: List[Optional[int]],
     return {**parts, "verdict": "agrees" if agrees else "differs"}
 
 
+def _span(first: int, last: int) -> str:
+    return f"segment {first}" if first == last else \
+        f"segments {first}-{last}"
+
+
 def _yes(holds: Optional[bool]) -> str:
     return "-" if holds is None else "yes" if holds else "no"
 
@@ -2479,7 +2637,8 @@ def section_dqn(records: Dict[int, dict], progress: Dict[int, dict],
             f"{_stat(final, 'crash')} | {_stat(final, 'merge')} | "
             f"{_stat(final, 'jerk')} | {_stat(final, 't_merge')} | "
             f"{r.get('card', '-')} |")
-    old_scan = [s for s in seeds if sides[s].get("per_scan") == "float32"]
+    scans = {s: segment_scans(sides[s]) for s in seeds}
+    old_scan = [s for s in seeds if set(scans[s]) == {OLD_PER_SCAN}]
     if old_scan:
         lines += ["", "Seeds " + ", ".join(map(str, old_scan)) + ": records "
                   "made while `rl/replay.py::sample` scanned the PER "
@@ -2487,6 +2646,23 @@ def section_dqn(records: Dict[int, dict], progress: Dict[int, dict],
                   "additions that can change from call to call: their "
                   "segments cannot be rerun bit for bit (`\"per_scan\": "
                   "\"float32\"`; the scan is float64 on the card since)."]
+    stitched: Dict[tuple, List[int]] = {}   # (float32 segments, all): seeds
+    for s in seeds:
+        if OLD_PER_SCAN in scans[s] and s not in old_scan:
+            stitched.setdefault((scans[s].count(OLD_PER_SCAN),
+                                 len(scans[s])), []).append(s)
+    if stitched:
+        lines += ["", "The stage stitches two scans of the PER priorities on "
+                  "the card (each segment's `\"per_scan\"`): " + "; ".join(
+                      f"seed{'s' if len(ss) > 1 else ''} "
+                      f"{', '.join(map(str, ss))}, {_span(1, n)} float32 and "
+                      f"{_span(n + 1, total)} float64"
+                      for (n, total), ss in stitched.items()) + ". The float32 "
+                  "scan added in an order that can change from call to call, so "
+                  "those segments cannot be rerun bit for bit; each later "
+                  "segment resumed from the handoff before it and, its scan "
+                  "exact, reruns bit for bit from there. The stage as a whole "
+                  "cannot be rerun bit for bit."]
     lines += ["", f"JAX: first crash 0, merge 1 at {jax_reach:,} episodes; "
               f"line {DQN_LINE}: crash {float(line['crashed']):.4f}, merge "
               f"{float(line['merged']):.4f}, |jerk| "
@@ -2608,11 +2784,10 @@ def hold_selection(port: dict, jax: dict, n: int) -> dict:
     return out
 
 
-def section_selections(stages: Dict[tuple, dict], jax: List[dict]) -> tuple:
-    """The section "The port's selections under JAX's evaluator" and the
-    count of networks that hold."""
-    lines = [
-        SELECTIONS_SECTION, "",
+# each trainer's text around the table of ``section_selections``: its
+# heading, what generated it, and its two verdicts
+SELECTIONS_TEXT = {
+    "ddpg": (SELECTIONS_SECTION, (
         "Generated by `python scripts/train_curve_torch.py --compare "
         "--trainer ddpg` from `scripts/jax_eval_port_selections.json` "
         "(`python scripts/jax_eval_port_selections.py`: each committed "
@@ -2627,7 +2802,37 @@ def section_selections(stages: Dict[tuple, dict], jax: List[dict]) -> tuple:
         "and time to merge the JAX evaluation's, and a score's SEM combines "
         "its parts' by `snapshot_score`'s weights. At least 7 of 8 holding "
         "puts DDPG's \"differs\" on the selection at four seeds; fewer, on "
-        "the port's evaluation path. Cells: port / JAX.", "",
+        "the port's evaluation path. Cells: port / JAX."),
+        ("selection at four seeds: JAX's evaluator scores the port's "
+         "networks as the port's does",
+         "the port's evaluation path differs from JAX's")),
+    "rainbow": ("### The port's selections under JAX's evaluator", (
+        "From `scripts/jax_eval_port_rainbow.json` (`python "
+        "scripts/jax_eval_port_selections.py --trainer rainbow`: each of the "
+        "port's selections `runs_torch/curve_rainbow/seed<k>_stage<s>.npz` "
+        "loaded into the JAX Rainbow network and evaluated on the CPU by "
+        "JAX's evaluator as a selection is, 1024 episodes at B=128 and "
+        "`SEED` k) and the port's own evaluation of the same network in its "
+        "stage record, by DDPG's rule: a network holds where each of crash, "
+        "merge, \\|jerk\\|, time to merge and the selection score lies "
+        "within 3 SEM of the difference (the port's crash and merge take "
+        "their binomial SEM, its \\|jerk\\| and time to merge the JAX "
+        "evaluation's). At least 7 of 8 holding puts a difference of the "
+        "curves on training and selection; fewer, on the port's evaluation "
+        "path. Cells: port / JAX."),
+        ("JAX's evaluator scores the port's networks as the port's does",
+         "the port's evaluation path differs from JAX's")),
+}
+
+
+def section_selections(stages: Dict[tuple, dict], jax: List[dict],
+                       trainer: str = "ddpg") -> tuple:
+    """The section (for Rainbow, the subsection) "The port's selections
+    under JAX's evaluator" of ``trainer`` and the count of networks that
+    hold."""
+    heading, intro, verdicts = SELECTIONS_TEXT[trainer]
+    lines = [
+        heading, "", intro, "",
         "| seed | stage | selected (stage, frames) | crash | merge | "
         "\\|jerk\\| | time to merge (s) | score | holds |",
         "| --- " * 9 + "|"]
@@ -2661,9 +2866,7 @@ def section_selections(stages: Dict[tuple, dict], jax: List[dict]) -> tuple:
             lines.append(f"| {r['seed']} | " + " | ".join(
                 f"{_stat(f, m)} / {_stat(r['final'], m)}"
                 for m in ("crash", "merge", "jerk", "t_merge")) + " |")
-    verdict = ("selection at four seeds: JAX's evaluator scores the port's "
-               "networks as the port's does" if held >= total - 1 else
-               "the port's evaluation path differs from JAX's")
+    verdict = verdicts[0] if held >= total - 1 else verdicts[1]
     lines += ["", f"**{held} of {total} networks hold: {verdict}.**", ""]
     return "\n".join(lines) + "\n", held
 
@@ -2675,6 +2878,10 @@ def main(argv=None) -> None:
                       help="train the seeds on the card")
     mode.add_argument("--compare", action="store_true",
                       help="apply the decision rule and write its section")
+    mode.add_argument("--peek", action="store_true",
+                      help="dqn: read each seed's last handoff in "
+                      "--resume-from (runs_torch/curve_dqn) into a train "
+                      "state on the CPU and print where its stage stands")
     mode.add_argument("--export", action="store_true",
                       help="write each seed's DDPG stage-2 selection "
                       "(scripts/curve_ddpg_stage2) as the network of "
@@ -2742,6 +2949,13 @@ def main(argv=None) -> None:
     deadline = args.deadline
     if deadline is None and args.time_limit is not None:
         deadline = time.time() + args.time_limit
+    if args.peek:
+        if args.trainer != "dqn":
+            ap.error("--peek reads custom-DQN handoffs: --trainer dqn")
+        folder = args.resume_from or args.handoffs or DQN_HANDOFFS
+        for seed, seen in check_handoffs(folder, args.seeds).items():
+            print(f"seed {seed}: " + json.dumps(seen), flush=True)
+        return
     if args.trainer == "dqn":
         if args.compare:
             verdict = compare_dqn(args.out, args.acceptance)

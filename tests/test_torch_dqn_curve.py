@@ -9,9 +9,11 @@ a scripted episode-count sequence, uncut and cut into segments.  With real
 rounds (B=4, 16 cars, short rounds, a ring that wraps) the script's loop
 equals ``dqn.train`` in every tensor, and a stage cut after an evaluation,
 handed off and resumed equals it run straight, bit for bit.  A handoff
-refuses another seed, config or budget.  The decision rule, on hand-made
-records.  A port selection loaded into the JAX actor acts as the port's
-actor."""
+refuses another seed, config or budget.  A handoff of the float32 PER
+scan loads under today's key and its stage's records keep each segment's
+scan.  The decision rule, on hand-made records.  A port selection loaded
+into the JAX actor acts as the port's actor.  The guard of
+``scripts/beside_torch.py``."""
 
 import csv
 import importlib.util
@@ -430,13 +432,17 @@ def test_the_custom_dqn_records_are_read_as_a_stage_and_keep_their_scan(
         tmp_path):
     """The custom DQN's records are read and made pending by the stage
     helpers the other trainers use (its one stage is stage 1, its budget
-    in episodes); the committed segments, made before the card's PER scan
-    was float64, are marked so, and the section names them."""
+    in episodes); each seed keeps one record, its newest, whose segments
+    made before the card's PER scan was float64 are marked so, and the
+    section names the stitch (or, for records of the float32 scan alone,
+    says that they cannot be rerun)."""
     records = tc._lines(tc.OUT)
     partial = tc.read_stages(records, "dqn", partial=True)
     assert sorted(partial) == [(s, 1) for s in tc.SEEDS]
-    assert {r["per_scan"] for r in records if r.get("trainer") == "dqn"} \
-        == {"float32"}
+    dqn = [r for r in records if r.get("trainer") == "dqn"]
+    assert len(dqn) == len(tc.SEEDS) and all("per_scan" not in r for r in dqn)
+    assert {tuple(tc.segment_scans(r)) for r in dqn} == {
+        ("float32", "float32", "float64")}
     assert tc.read_stages(records, "dqn") == {}
     assert tc.pending_stage([0, 1, 2, 3], tc.OUT, 150_000, 1, "dqn") == \
         [0, 1, 2, 3]
@@ -447,13 +453,21 @@ def test_the_custom_dqn_records_are_read_as_a_stage_and_keep_their_scan(
     assert tc.pending_stage([0, 1], str(out), 200_000, 1, "dqn") == [0, 1]
     acc = tmp_path / "acc.md"
     assert tc.compare_dqn(tc.OUT, str(acc)) == "is not decided yet"
+    assert "(each segment's `\"per_scan\"`): seeds 0, 1, 2, 3, segments 1-2 " \
+        "float32 and segment 3 float64." in acc.read_text()
+
+    def section(scan, old=None):
+        return tc.section_dqn({}, {s: dict(r, segments=[
+            {**{k: v for k, v in g.items() if k != "per_scan"},
+             **({"per_scan": scan} if scan else {})}
+            for g in r["segments"]], **({"per_scan": old} if old else {}))
+            for (s, _), r in partial.items()}, tc.logged_dqn(),
+            tc.jax_dqn_row())[0]
+    assert "float32" not in section(tc.DQN_PER_SCAN)
+    old = section(None, "float32")
     assert "Seeds 0, 1, 2, 3: records made while `rl/replay.py::sample` " \
-        "scanned the PER priorities in float32" in acc.read_text()
-    text, _ = tc.section_dqn(
-        {}, {s: dict(r, per_scan=tc.DQN_PER_SCAN)
-             for (s, _), r in partial.items()}, tc.logged_dqn(),
-        tc.jax_dqn_row())
-    assert "scanned the PER priorities in float32" not in text
+        "scanned the PER priorities in float32" in old
+    assert "stitches" not in old
 
 
 # --- the rule ----------------------------------------------------------------
@@ -721,3 +735,130 @@ def test_a_float32_rings_float64_scan_is_exact():
     c = torch.cumsum(pri, 0)
     assert torch.equal(rb.sample(ring, 512, u=u)[0], torch.searchsorted(
         c, u * c[-1], right=True).clamp_(0, cap - 1))
+
+
+# --- a stage stitched from two PER scans ------------------------------------
+
+# the key of a custom-DQN handoff written under the float32 PER scan (seed 0
+# of the stage at 150,000 episodes), as such a file holds it
+FLOAT32_ERA_KEY = {"trainer": "dqn", "config": "configs/train_default_1.json",
+                   "TASK": "TRAIN_DQN", "LOG_DIR": "dqn_custom_default1",
+                   "seed": 0, "batch": 128, "episodes_budget": 150000,
+                   "eval_episodes": 512, "env_ticks": 200, "overrides": "{}"}
+
+
+def _as_float32_era(path):
+    """Rewrite a handoff as one saved before segments kept their scan."""
+    data = torch.load(path, map_location="cpu", weights_only=True)
+    for g in data["segments"]:
+        g.pop("per_scan")
+    torch.save(data, path)
+
+
+def test_a_stage_stitched_from_two_scans_is_recorded_and_compared(
+        short_evaluations, tmp_path):
+    """A segment resumed from a handoff of the float32 scan: its progress
+    record keeps each segment's scan, replaces the seed's older partial
+    records and is read back; the stage's final record keeps every
+    segment's scan and claims none for the whole; ``--compare`` names the
+    stitch."""
+    first, second, last = (str(tmp_path / n) for n in ("a", "b", "c"))
+    assert tc.run_dqn_stage(0, EPISODES, handoffs=first, evals=1,
+                            **SIZES) is None
+    _as_float32_era(tc.handoff_files(first, 0, "dqn")[-1])
+    assert tc.run_dqn_stage(0, EPISODES, handoffs=second, evals=1,
+                            resume_from=first, **SIZES) is None
+    progress = tc.dqn_progress(second, [0])[0]
+    assert tc.segment_scans(progress) == ["float32", "float64"]
+    out = tmp_path / "curve.jsonl"
+    older = {"trainer": "dqn", "partial": True, "seed": 0,
+             "per_scan": "float32", "segments": [{}]}
+    # another seed's record of the float32 scan, one field for every segment
+    other = dict(progress, seed=1, per_scan="float32", segments=[
+        {k: v for k, v in g.items() if k != "per_scan"}
+        for g in progress["segments"]])
+    out.write_text("".join(json.dumps(r) + "\n" for r in (older, other)))
+    tc.put_record(str(out), progress, tc.dqn_partials_of(0))
+    back = tc.read_stages(tc._lines(str(out)), "dqn", partial=True)
+    assert [r["seed"] for r in tc._lines(str(out))] == [1, 0]
+    assert tc.segment_scans(back[(0, 1)]) == ["float32", "float64"]
+    assert tc.segment_scans(back[(1, 1)]) == ["float32", "float32"]
+    assert all(round(s, 2) == s for s in back[(0, 1)]["s_per_round"])
+    text, _ = tc.section_dqn({}, {0: back[(0, 1)], 1: back[(1, 1)]},
+                             tc.logged_dqn(), tc.jax_dqn_row())
+    assert "Seeds 1: records made while `rl/replay.py::sample` scanned" \
+        in text
+    assert "The stage stitches two scans of the PER priorities on the card " \
+        "(each segment's `\"per_scan\"`): seed 0, segment 1 float32 and " \
+        "segment 2 float64." in text
+    got = tc.run_dqn_stage(0, EPISODES, handoffs=last, resume_from=second,
+                           **SIZES)
+    assert "per_scan" not in got
+    assert tc.segment_scans(got) == ["float32", "float64", "float64"]
+    tc.put_record(str(out), got, tc.dqn_partials_of(0))
+    assert tc.read_stages(tc._lines(str(out)), "dqn", partial=True).keys() \
+        == {(1, 1)}
+    assert tc.segment_scans(tc.read_stages(tc._lines(str(out)), "dqn")[
+        (0, 1)]) == ["float32", "float64", "float64"]
+
+
+def test_a_float32_era_handoff_key_loads_and_another_is_refused(tmp_path):
+    """Today's key of seed 0's stage is the key the float32-era files
+    hold: such a file (its segments without a scan, its draws a card
+    generator's 16 bytes) loads into a CPU train state through
+    ``--peek``'s check, which reports where the stage stands; another
+    seed, config or budget is still refused."""
+    from rl_mpc_lanemerging_torch import tasks
+    assert tc.dqn_handoff_key(0, 128, 150_000, 512, 200) == FLOAT32_ERA_KEY
+    cfg = tc.dqn_config(0, 128)
+    state = pdqn.make_train_state(cfg, *tasks.make_worlds(cfg, device="cpu"),
+                                  0)
+    state.episodes = state.episodes + 59_596
+    path = tc.handoff_path(str(tmp_path), 0, tc.DQN_STAGE, 2)
+    segments = [{"rounds_to": 274, "episodes": 37_099},
+                {"rounds_to": 473, "episodes": 59_596}]
+    tc.save_handoff(path, state, FLOAT32_ERA_KEY, {
+        "loop": {"rounds": 473, "last_target": 59_482, "last_eval": 59_596},
+        "seconds": [9.3] * 473, "best": {"score": [0.0833, 0.0, 0.32],
+                                          "episodes": 22_648},
+        "segments": segments}, fields=tc.DQN_FIELDS)
+    data = torch.load(path, map_location="cpu", weights_only=True)
+    data["state"]["draws"] = torch.zeros(16, dtype=torch.uint8)
+    torch.save(data, path)
+    seen = tc.check_handoffs(str(tmp_path), [0])[0]
+    assert (seen["episodes"], seen["rounds"], seen["last_target"],
+            seen["last_eval"], seen["draws_bytes"]) == (
+        59_596, 473, 59_482, 59_596, 16)
+    assert seen["segments"] == [(274, 37_099), (473, 59_596)]
+    assert seen["best_episodes"] == 22_648 and seen["ring_fill"] == 0
+    fresh = pdqn.make_train_state(cfg, *tasks.make_worlds(cfg, device="cpu"),
+                                  0)
+    fresh.draws.generator = tc._HeldGeneratorState()
+    for other in (tc.dqn_handoff_key(1, 128, 150_000, 512, 200),
+                  tc.dqn_handoff_key(0, 128, 150_000, 512, 200,
+                                     {"MAX_CARS": 16}),
+                  tc.dqn_handoff_key(0, 128, 100_000, 512, 200)):
+        with pytest.raises(ValueError, match="was written for"):
+            tc.load_handoff(path, fresh, other, tc.DQN_FIELDS)
+    with pytest.raises(FileNotFoundError, match="no handoff"):
+        tc.check_handoffs(str(tmp_path), [1])
+
+
+def test_the_beside_guard_reads_each_seeds_first_rounds(tmp_path):
+    """``scripts/beside_torch.py``'s guard: the median of the first N
+    rounds of every DQN seed's log together, None until each has N; the
+    lines are those ``run_dqn_stage`` prints before each round."""
+    bt = _load("beside_torch")
+    logs = []
+    for seed, base in ((0, 9.0), (1, 11.0)):
+        log = tmp_path / f"train_curve_dqn_seed{seed}.log"
+        log.write_text("seed line\n" + "".join(
+            f"  round {474 + i}: {base + i / 100:.3f} s\n"
+            "  round 10 episodes=1 eps=0.1 loss=0.1\n" for i in range(25)))
+        logs.append(str(log))
+    assert bt.round_seconds(logs[0])[:2] == [9.0, 9.01]
+    assert bt.guard_median(logs, 20) == pytest.approx(10.095)
+    assert bt.guard_median(logs, 26) is None
+    assert bt.guard_median(logs[:1], 20) == pytest.approx(9.095)
+    with pytest.raises(RuntimeError, match="card"):
+        bt.main(["--dir", str(tmp_path / "x")])

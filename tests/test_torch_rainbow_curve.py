@@ -10,8 +10,9 @@ into stage 2 and stage 2's start), and the card script's two stages
 (``scripts/train_curve_torch.py --trainer rainbow``) against the port's
 ``train``.  Then the scripts at a tiny size: the (seed, stage) records
 and resuming past them, stage 2 refusing without its snapshot, the
-snapshot's round trip, ``--compare --trainer rainbow`` and the JAX
-package's logged runs."""
+snapshot's round trip, ``--compare --trainer rainbow`` (four seeds a
+side, and eight with the port's selections under JAX's evaluator), the
+JAX package's logged runs, and a port selection in the JAX network."""
 
 import importlib.util
 import inspect
@@ -617,3 +618,140 @@ def test_logged_rainbow_runs_are_read_from_the_jax_packages_scalars():
     assert (sel["crash"], sel["merge"]) == (0.2255859375, 0.748046875)
     assert len(two) == 5 and two[2]["frames"] == 600_560
     assert two[2]["merge"] == 0.8759765625
+
+
+# --- eight seeds a side, and the port's selections under JAX's evaluator ---
+
+JAX8 = [(0.01, 0.97), (0.0, 0.99), (0.02, 0.95), (0.0, 1.0), (0.03, 0.94),
+        (0.01, 0.96), (0.0, 0.98), (0.02, 0.93)]
+# seed 2 merges 0.48 and seed 4 0.85: two weak seeds against none
+PORT8 = [(0.0, 0.96), (0.04, 0.93), (0.0068, 0.48), (0.0, 1.0),
+         (0.01, 0.85), (0.0, 0.97), (0.02, 0.95), (0.0, 0.99)]
+SCORES8 = [0.09, 0.1, 0.08, 0.11, 0.09, 0.1, 0.12, 0.08]
+
+
+def _selection_eval(crash, merge, jerk=0.1, t_merge=33.0, n=1024):
+    e = {"episodes": n, "crash": crash, "crash_sem": 0.004, "merge": merge,
+         "merge_sem": 0.01, "jerk": jerk, "jerk_sem": 0.002,
+         "t_merge": t_merge, "t_merge_sem": 0.15}
+    from rl_mpc_lanemerging_torch.agents.budget import snapshot_score
+    e["score"] = list(snapshot_score(crash, merge, jerk, t_merge))
+    return e
+
+
+def test_the_eight_seed_rule_allows_two_of_eight_in_each_count():
+    """Rules (b) and (c) at eight seeds a side: the counts of seeds no
+    worse than the reference and of weak seeds may each differ by two;
+    at four seeds, by one, as before."""
+    side = {"crash": (0.01, 0.005), "merge": (0.9, 0.05),
+            "jerk": (0.2, 0.02), "t_merge": (33.0, 1.0),
+            "score": (0.1, 0.01), "stage1_score": (0.12, 0.01),
+            "no_worse": 8, "weak": 0, "n": 8}
+    for name, port_count, jax_count, hold in (
+            ("no_worse", 6, 8, True), ("no_worse", 5, 8, False),
+            ("weak", 2, 0, True), ("weak", 3, 0, False),
+            ("weak", 0, 2, True)):
+        rows, counts, allow, verdict = tc.decide_rainbow_seeds(
+            {**side, name: port_count}, {**side, name: jax_count})
+        assert allow == 2 and all(r[-1] for r in rows)
+        assert counts[name] is hold
+        assert verdict == ("agrees" if hold else "differs")
+    four = {**side, "n": 4, "no_worse": 4}
+    _, counts, allow, verdict = tc.decide_rainbow_seeds(
+        {**four, "weak": 2}, {**four, "weak": 0})
+    assert allow == 1 and not counts["weak"] and verdict == "differs"
+    _, counts, _, verdict = tc.decide_rainbow_seeds(
+        {**side, "merge": (0.5, 0.01)}, side)
+    assert all(counts.values()) and verdict == "differs"
+
+
+def test_compare_rainbow_decides_eight_seeds_and_the_port_selections(
+        tmp_path):
+    """``--compare --trainer rainbow`` over the seeds both sides have (a
+    port seed with stage 1 alone left out): eight a side with two weak port
+    seeds agree; a third weak seed differs by rule (c).  The JAX
+    evaluations of the port's selections sit in the section, 7 of 8
+    holding being enough."""
+    card = {"card": "NVIDIA H100 80GB HBM3, 700.00 W", "concurrent_seeds": 4,
+            "k1_launches": 0}
+    jax = _side(JAX8, SCORES8, cpu_count=2)
+    port = _side(PORT8, SCORES8, **card) + [
+        _stage(8, 1, 0.2, EVALS1, **card)]
+    out = tmp_path / "curve.jsonl"
+    out.write_text("".join(json.dumps(r) + "\n" for r in port))
+    yard = tmp_path / "rainbow.json"
+    yard.write_text(json.dumps({"records": jax}))
+    acc = tmp_path / "ACCEPTANCE_TORCH.md"
+    acc.write_text("# Acceptance\n")
+    # the JAX evaluator's records of seeds 4-7: each as the port's own
+    # evaluation of the same network, seed 5's stage-2 one far off
+    sel = []
+    for seed in (4, 5, 6, 7):
+        for stage, (frames, crash, merge) in ((1, EVALS1[-1]),
+                                              (2, EVALS2[-1])):
+            off = 0.2 if (seed, stage) == (5, 2) else 0.0
+            sel.append({"trainer": "rainbow", "seed": seed, "stage": stage,
+                        "eval": _selection_eval(crash + off, merge - off)})
+    selections = tmp_path / "jax_eval_port_rainbow.json"
+    selections.write_text(json.dumps({"records": sel}))
+    assert tc.compare_rainbow(str(out), str(yard), str(acc),
+                              str(selections)) == "agrees"
+    text = acc.read_text()
+    assert "Seeds: port [0, 1, 2, 3, 4, 5, 6, 7], JAX [0, 1, 2, 3, 4, 5, 6, " \
+        "7]." in text
+    assert "| seeds whose final snapshot merges below 0.9 | 2 of 8 | 0 of 8 " \
+        "| 2 | at most 2 | yes |" in text
+    assert "| seeds no worse than rainbow_default1_extended | 7 of 8 | 8 of " \
+        "8 | 1 | at most 2 | yes |" in text
+    assert "### The port's selections under JAX's evaluator" in text
+    assert "| 5 | 2 | 2, 600,560 | 0.0723 / 0.2723 (flagged) |" in text
+    assert "**7 of 8 networks hold: JAX's evaluator scores the port's " \
+        "networks as the port's does.**" in text
+    weak3 = list(PORT8)
+    weak3[5] = (0.0, 0.88)
+    out.write_text("".join(json.dumps(r) + "\n"
+                           for r in _side(weak3, SCORES8, **card)))
+    assert tc.compare_rainbow(str(out), str(yard), str(acc),
+                              str(tmp_path / "none.json")) == "differs"
+    text = acc.read_text()
+    assert "| seeds whose final snapshot merges below 0.9 | 3 of 8 | 0 of 8 " \
+        "| 3 | at most 2 | no |" in text
+    assert "under JAX's evaluator" not in text
+
+
+def test_a_port_rainbow_selection_acts_in_the_jax_network(tmp_path):
+    """A stage-2 selection file written by the card script, loaded by
+    ``jax_eval_port_selections.rainbow_params`` into the JAX Rainbow
+    network: on the same observations its distributions equal the port's,
+    with no noise (the greedy evaluation's, same actions) and with the
+    same NoisyNet noise."""
+    import jax
+    from _torch_parity import _noise_of
+    je = _load("jax_eval_port_selections")
+    cfg = _settings(PortSettings)
+    net = prb._net(cfg, torch.Generator().manual_seed(11))
+    with torch.no_grad():          # a trained net's spread, not the init's
+        for p in net.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=torch.Generator()
+                                      .manual_seed(p.numel())))
+    path = tc.snapshot_path(str(tmp_path), 4, stage=2)
+    tc.save_stage1(path, net.state_dict(), {"score": (0.09, 0.0, 0.1),
+                                            "frames": 988_334})
+    params = je.rainbow_params(path)
+    jnet = jrb._net(_settings(JaxSettings))
+    obs = np.random.default_rng(5).normal(size=(256, cfg.obs_dim)).astype(
+        np.float32)
+    z = np.linspace(jrb.V_MIN, jrb.V_MAX, jrb.NUM_ATOMS)
+
+    def actions(logits):
+        p = np.exp(logits - logits.max(-1, keepdims=True))
+        return np.argmax((p / p.sum(-1, keepdims=True) * z).sum(-1), -1)
+
+    key = jax.random.PRNGKey(7)
+    for rng, noise in ((None, None), (key, _noise_of(key, net))):
+        want = np.asarray(jnet.apply(params, obs, rng=rng))
+        with torch.no_grad():
+            got = net(torch.from_numpy(obs), noise).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        assert (actions(got) == actions(want)).all()
+    assert len(set(actions(want))) > 1
