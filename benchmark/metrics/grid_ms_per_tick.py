@@ -1,0 +1,14 @@
+"""grid_ms_per_tick (ms, program span): the median, over the ticks of a
+traced run that hold spans (the profiled ones left out), of the time
+inside the obstacle grid builds (planner/grid.py build_st_grid, as
+planner/mpc.py calls it), synchronised at both ends."""
+
+import statistics
+
+from harness.stats import unprofiled
+
+
+def read(run):
+    ticks = unprofiled(run.window.spans.get("grid", {}),
+                       run.window.profiled)
+    return 1e3 * statistics.median(ticks) if ticks else None
