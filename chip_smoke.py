@@ -885,12 +885,12 @@ def _param_gap(card, cpu) -> float:
 
 
 def _range_cost_us(n: int = 2000) -> float:
-    """Host time of one empty ``record_function`` range with the profiler
-    off, in us (the cost of the update's stage ranges)."""
-    from torch.profiler import record_function
+    """Host time of one empty span of the program's tracer with the tracer
+    off, in us (the cost of the update's stage spans)."""
+    from rl_mpc_lanemerging_torch import tracing
     t0 = time.perf_counter()
     for _ in range(n):
-        with record_function("ddpg.cost"):
+        with tracing.span("ddpg.target"):
             pass
     return (time.perf_counter() - t0) / n * 1e6
 
@@ -913,7 +913,7 @@ def _train_round_report(name, state, rounds, dev):
 
 def training_phases(dev, batch: int = BATCH) -> dict:
     """Phases 14-19: the training path (no K1 on it)."""
-    from rl_mpc_lanemerging_torch import convert, tasks
+    from rl_mpc_lanemerging_torch import convert, tasks, tracing
     from rl_mpc_lanemerging_torch._device import pin_fp32_matmul
     from rl_mpc_lanemerging_torch.agents import budget, ddpg, rainbow
     from rl_mpc_lanemerging_torch.checkpoint import load_params
@@ -1055,8 +1055,15 @@ def training_phases(dev, batch: int = BATCH) -> dict:
         rb.sample(state.replay, ddpg.DDPG_BATCH,
                   generator=state.draws.generator)[1])
         for _ in range(UPDATES_PER_TICK)]) / UPDATES_PER_TICK
-    prof = tick_profile(lambda: ddpg.train_round(
-        state, cfg, 1, UPDATES_PER_TICK), ticks=1, ranges=ddpg.UPDATE_STAGES)
+    # the stages are spans of the program's tracer: on for the profile
+    tracing.enable()
+    try:
+        prof = tick_profile(lambda: ddpg.train_round(
+            state, cfg, 1, UPDATES_PER_TICK), ticks=1,
+            ranges=ddpg.UPDATE_STAGES)
+    finally:
+        tracing.disable()
+        tracing.clear()
     stage_ms = {r: ms / UPDATES_PER_TICK for r, ms in
                 prof["range_host_ms_per_tick"].items()
                 if not isinstance(ms, str)}
@@ -1075,7 +1082,7 @@ def training_phases(dev, batch: int = BATCH) -> dict:
     rep["profiler_range_host_us"] = range_us
     print("   host ms per update in each stage, under the profiler: "
           + json.dumps(stage_ms) + f"; a range costs {range_us:.2f} us of "
-          f"host time with the profiler off ({len(ddpg.UPDATE_STAGES)} per "
+          f"host time with the tracer off ({len(ddpg.UPDATE_STAGES)} per "
           "update)", flush=True)
     done(t0)
 

@@ -32,7 +32,7 @@ from typing import Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .. import geometry
+from .. import geometry, tracing
 from .._device import const, pin_fp32_matmul
 from ..config import Settings
 from ..planner import mpc
@@ -89,7 +89,8 @@ def _rl_rollout(policy: Policy, states: HighwayState, first_jerk,
 
     for i in range(1, rollouts + 1):
         if i != 1:
-            jerk = policy(st)                      # re-query (dqn.py:131-132)
+            with tracing.span("combined.actor"):
+                jerk = policy(st)                  # re-query (dqn.py:131-132)
         sel = _speed_from_jerk(st.ego_speed, st.ego_accel, jerk, cfg)
         nxt, crashed_now = predict_step_with_ego(
             st, sel, cfg.TICK_LENGTH, cfg, cfg.COMBINATION_MIN_DISTANCE)
@@ -141,23 +142,29 @@ def arbitrate(policy: Policy, states: HighwayState, cfg: Settings,
     REMEMBER_LAST_CHOICE_FOR_SWITCHING_COMBINED."""
     if use_kernel is None:
         use_kernel = states.ego_x.is_cuda
-    first_jerk = policy(states)
+    with tracing.span("combined.actor"):
+        first_jerk = policy(states)
     v = states.ego_speed.to(dtype)
     a = states.ego_accel.to(dtype)
 
-    s_hist, rollout_len, crash_pred, sel_speed, test_state = \
-        _rl_rollout(policy, states, first_jerk, cfg)
+    with tracing.span("combined.rollout"):
+        s_hist, rollout_len, crash_pred, sel_speed, test_state = \
+            _rl_rollout(policy, states, first_jerk, cfg)
 
     # --- ST solve shared by gate d and the takeover command ---
-    st_speed, _seq, _valid, fine, fine_len, _grids = \
-        mpc.batched_st_control(states, cfg, dtype, use_kernel)
+    with tracing.span("controller.plan"):
+        st_speed, _seq, _valid, fine, fine_len, _grids = \
+            mpc.batched_st_control(states, cfg, dtype, use_kernel)
 
     # --- gates ---
     off = torch.zeros_like(crash_pred)
     gate_a = crash_pred if cfg.CHECK_ROLLOUT_CRASH else off
     gate_b = sel_speed > cfg.DESIRED_SPEED if cfg.LIMIT_DQN_SPEED else off
-    gate_c = mpc.batched_test_guaranteed_crash(
-        test_state, cfg, dtype, use_kernel) if cfg.TEST_ROLLOUT_STATE else off
+    gate_c = off
+    if cfg.TEST_ROLLOUT_STATE:
+        with tracing.span("controller.certificate"):
+            gate_c = mpc.batched_test_guaranteed_crash(
+                test_state, cfg, dtype, use_kernel)
     take = gate_a | gate_b | gate_c
 
     rl_speed = _speed_from_jerk(v, a, first_jerk.to(dtype), cfg)
@@ -208,14 +215,16 @@ def combined_controller(policy: Policy, cfg: Settings, dtype=torch.float32,
 
     if cfg.REMEMBER_LAST_CHOICE_FOR_SWITCHING_COMBINED:
         def control(states: HighwayState, carry):
-            d = arbitrate(policy, states, cfg, carry, dtype, use_kernel)
+            with tracing.span("combined.arbitrate"):
+                d = arbitrate(policy, states, cfg, carry, dtype, use_kernel)
             return (d.speed, d.take.to(torch.float32)), d.take
 
         def init_carry(batch: int, device="cpu"):
             return torch.zeros((batch,), dtype=torch.bool, device=device)
     else:
         def control(states: HighwayState):
-            d = arbitrate(policy, states, cfg, None, dtype, use_kernel)
+            with tracing.span("combined.arbitrate"):
+                d = arbitrate(policy, states, cfg, None, dtype, use_kernel)
             return d.speed, d.take.to(torch.float32)
 
         init_carry = None

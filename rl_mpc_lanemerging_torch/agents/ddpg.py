@@ -41,9 +41,8 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
-from .. import convert
+from .. import convert, tracing
 from .._device import pin_fp32_matmul, resolve_device
 from ..checkpoint import load_actor, load_params, save_params
 from ..config import Settings
@@ -72,7 +71,7 @@ DDPG_DISCOUNT = 0.99
 REPLAY_START = 2000
 DDPG_REPLAY_CAPACITY = 2 ** 19
 TICKS_PER_ROUND = 200        # env ticks per round of _train_frames
-# the profiler ranges of one update, in order (the replay draw in
+# the tracer's spans of one update, in order (the replay draw in
 # train_round, the rest in _update)
 UPDATE_STAGES = ("ddpg.replay_draw", "ddpg.target", "ddpg.critic_step",
                  "ddpg.actor_step", "ddpg.polyak")
@@ -182,27 +181,27 @@ def _update(actor: DDPGActor, critic: DDPGCritic, target_actor: DDPGActor,
             target_critic: DDPGCritic, actor_opt, critic_opt, batch,
             group=None) -> None:
     """One DDPG update, in place: the critic first, then the actor through
-    the updated critic, then both targets.  Each stage is a profiler range
-    (``UPDATE_STAGES``).  With a process ``group`` both gradients are
+    the updated critic, then both targets.  Each stage is a span of the
+    tracer (``UPDATE_STAGES``).  With a process ``group`` both gradients are
     averaged over its ranks (JAX ``_update(axis_name=...)``, ddpg.py:121,
     :131), which keeps every rank's copy identical."""
     act = batch["action"][:, None]
-    with record_function("ddpg.target"), torch.no_grad():
+    with tracing.span("ddpg.target"), torch.no_grad():
         next_a = target_actor(batch["next_obs"])
         q_next = target_critic(batch["next_obs"], next_a)
         target = batch["reward"] + DDPG_DISCOUNT \
             * torch.where(batch["terminal"], 0.0, q_next)
 
-    with record_function("ddpg.critic_step"):
+    with tracing.span("ddpg.critic_step"):
         q = critic(batch["obs"], act)
         _step(critic_opt, torch.mean((q - target) ** 2), group)
 
     # gradients into the actor's parameters only
-    with record_function("ddpg.actor_step"):
+    with tracing.span("ddpg.actor_step"):
         a = actor(batch["obs"])
         _step(actor_opt, -torch.mean(critic(batch["obs"], a)), group)
 
-    with record_function("ddpg.polyak"), torch.no_grad():
+    with tracing.span("ddpg.polyak"), torch.no_grad():
         _polyak((target_actor, target_critic), (actor, critic))
 
 
@@ -257,7 +256,7 @@ def train_round(state: DDPGTrainState, cfg: Settings, env_ticks: int = 64,
         if state.learning:
             p = state.replay.priority
             for _ in range(updates_per_tick):
-                with record_function("ddpg.replay_draw"):
+                with tracing.span("ddpg.replay_draw"):
                     _, batch = rb.sample(state.replay, DDPG_BATCH,
                                          u=draws.replay_uniform(
                                              DDPG_BATCH, p.dtype, p.device))

@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch.distributed as dist
 
+from . import tracing
 from .config import Settings
 from .parallel.sharded import maybe_initialize_distributed
 
@@ -132,6 +133,11 @@ def main(argv=None) -> None:
                         help="sweep the reference's ST-weight or "
                              "combination grids around the loaded config "
                              "(reference main.py:43-81)")
+    parser.add_argument("--trace-out", default=None, metavar="PATH",
+                        help="trace the task (the spans and counters of "
+                             "tracing.py) and write them to PATH as "
+                             "Chrome-trace JSON when it ends; each rank of "
+                             "a run of several writes PATH.rank<r>")
     args = parser.parse_args(argv)
 
     cfg = Settings() if args.config is None \
@@ -146,10 +152,18 @@ def main(argv=None) -> None:
         None if args.device.startswith("cuda") else "gloo")
     run = {"st": do_grid_search_st, "combined": do_grid_search_combined,
            None: do_task}[args.grid_search]
+    if args.trace_out:
+        tracing.enable()
     try:
         run(cfg, device=args.device, csv_path=args.csv,
             num_frames=args.frames)
     finally:
+        if args.trace_out:
+            tracing.disable()
+            path = args.trace_out
+            if dist.is_initialized() and dist.get_world_size() > 1:
+                path = f"{path}.rank{dist.get_rank()}"
+            tracing.write_chrome_trace(path)
         if dist.is_initialized():
             dist.destroy_process_group()
 

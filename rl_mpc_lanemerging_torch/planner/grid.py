@@ -23,7 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import geometry
+from .. import geometry, tracing
 from .._device import const
 from ..config import Settings
 from ..prediction import HighwayState, predict_step_without_ego
@@ -108,7 +108,8 @@ def build_st_grid(state: HighwayState, cfg: Settings,
         cfg.CAR_LENGTH + float(unc_host[0]), cfg, dtype)
     rolled = state
     for t in range(1, num_t):
-        rolled, _ = predict_step_without_ego(rolled, delta_t, cfg)
+        with tracing.span("grid.forecast"):
+            rolled, _ = predict_step_without_ego(rolled, delta_t, cfg)
         reach = const(float(unc_host[t]), ds) + cfg.CAR_LENGTH
         obst[t], dist[t] = _mark_slice(rolled, s_values, start_s, ds,
                                        discrete_reach[t], reach, cfg, dtype)

@@ -20,7 +20,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from .. import geometry
+from .. import geometry, tracing
 from .._device import const, pin_fp32_matmul
 from ..config import Settings
 from ..ops import qp, st_dp, st_kernel
@@ -66,22 +66,25 @@ def batched_plan(states: HighwayState, cfg: Settings, dtype=torch.float32,
 
     Returns (seq (B, T), valid_len (B,) int32, grids: STGrid).
     """
-    grids = build_st_grid(states, cfg, dtype)
+    with tracing.span("grid.build"):
+        grids = build_st_grid(states, cfg, dtype)
     ego_accel = states.ego_accel.to(dtype)
     w = weights_from_settings(cfg)
-    if use_kernel and cfg.USE_FAST_ST_SOLVER:
-        seq = st_kernel.st_wavefront(
-            grids.obstacles, grids.s_values, grids.ego_speed, ego_accel,
-            grids.distances, cfg.T_DISCRETIZATION, cfg.S_DISCRETIZATION, w,
-            _max_offset(cfg)).to(dtype)
-    elif cfg.USE_FAST_ST_SOLVER:
-        seq = st_dp.solve_st_fast(
-            grids.obstacles, grids.s_values, grids.t_values,
-            grids.ego_speed, ego_accel, grids.distances, w, _max_offset(cfg))
-    else:
-        seq = st_dp.solve_st_no_jerk_fast(
-            grids.obstacles, grids.s_values, grids.t_values,
-            grids.ego_speed, grids.distances, w, _max_offset(cfg))
+    with tracing.span("dp.solve"):
+        if use_kernel and cfg.USE_FAST_ST_SOLVER:
+            seq = st_kernel.st_wavefront(
+                grids.obstacles, grids.s_values, grids.ego_speed, ego_accel,
+                grids.distances, cfg.T_DISCRETIZATION, cfg.S_DISCRETIZATION,
+                w, _max_offset(cfg)).to(dtype)
+        elif cfg.USE_FAST_ST_SOLVER:
+            seq = st_dp.solve_st_fast(
+                grids.obstacles, grids.s_values, grids.t_values,
+                grids.ego_speed, ego_accel, grids.distances, w,
+                _max_offset(cfg))
+        else:
+            seq = st_dp.solve_st_no_jerk_fast(
+                grids.obstacles, grids.s_values, grids.t_values,
+                grids.ego_speed, grids.distances, w, _max_offset(cfg))
     num_t = seq.shape[1]
     nonzero = torch.flip(seq, dims=(1,)) != 0.0
     trailing = torch.argmax(nonzero.to(torch.uint8), dim=1)
@@ -154,11 +157,12 @@ def batched_st_control(states: HighwayState, cfg: Settings,
             last = torch.clamp_min(valid - 1, 0).to(torch.int64)
             last_s = torch.gather(seq, 1, last[:, None])[:, 0]
             pos_lo, pos_hi = corridor_from_state(states, last_s, cfg, dtype)
-        fine, fine_len = qp.finer_fit_qp(
-            seq, valid, v0, a0, op, cfg.T_DISCRETIZATION, cfg.MAX_SPEED,
-            cfg.MAX_POSITIVE_ACCELERATION, cfg.MAX_NEGATIVE_ACCELERATION,
-            cfg.MAXIMUM_POSITIVE_JERK, cfg.MINIMUM_NEGATIVE_JERK,
-            iterations=cfg.QP_ITERATIONS, pos_lo=pos_lo, pos_hi=pos_hi)
+        with tracing.span("qp.admm"):
+            fine, fine_len = qp.finer_fit_qp(
+                seq, valid, v0, a0, op, cfg.T_DISCRETIZATION, cfg.MAX_SPEED,
+                cfg.MAX_POSITIVE_ACCELERATION, cfg.MAX_NEGATIVE_ACCELERATION,
+                cfg.MAXIMUM_POSITIVE_JERK, cfg.MINIMUM_NEGATIVE_JERK,
+                iterations=cfg.QP_ITERATIONS, pos_lo=pos_lo, pos_hi=pos_hi)
         step_dt = cfg.TICK_LENGTH
     else:
         fine, fine_len = seq, valid
@@ -315,6 +319,7 @@ def make_batched_controller(cfg: Settings) -> Callable:
     pin_fp32_matmul()
 
     def controller(states: HighwayState) -> torch.Tensor:
-        return batched_st_control(states, cfg,
-                                  use_kernel=states.ego_x.is_cuda)[0]
+        with tracing.span("controller.plan"):
+            return batched_st_control(states, cfg,
+                                      use_kernel=states.ego_x.is_cuda)[0]
     return controller

@@ -23,7 +23,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from .. import geometry
+from .. import geometry, tracing
 from .._device import const
 from ..config import Settings
 from ..prediction import HighwayState, get_closest_cars
@@ -227,6 +227,10 @@ def run_episode_batch(world: WorldState, cfg: Settings,
     caller, across rounds (like the reference's ``takeover_history``,
     dqn.py:126-127, which is never reset), and it is returned last:
     (world_after, EpisodeStats[, history], carry).
+
+    Each control tick is the span ``episode.tick`` of the port's tracer
+    (``tracing.py``), the sensing, history write, tick metrics and world
+    step spans inside it.
     """
     batch = world.ego_arc.shape[0]
     dtype = world.ego_arc.dtype
@@ -247,38 +251,53 @@ def run_episode_batch(world: WorldState, cfg: Settings,
     history = (empty_history(sense(world, cfg), max_ticks)
                if record_history else None)
     tick = 1
-    while tick <= max_ticks and not bool(done.all()):
-        arrived = world.ego_arrived & ~done
-        collided = world.ego_collided & ~done
-        stats = stats._replace(merged=stats.merged | arrived,
-                               crashed=stats.crashed | collided)
-        done = done | arrived | collided
-        active = ~done
+    while tick <= max_ticks:
+        # the loop's one host read a tick: the scenarios still running as
+        # the tick starts (the tracer's counter episode.active)
+        running = batch - int(done.sum())
+        if not running:
+            break
+        tracing.set_tick(tick)
+        tracing.count("episode.active", running)
+        with tracing.span("episode.tick"):
+            arrived = world.ego_arrived & ~done
+            collided = world.ego_collided & ~done
+            stats = stats._replace(merged=stats.merged | arrived,
+                                   crashed=stats.crashed | collided)
+            done = done | arrived | collided
+            active = ~done
 
-        state = sense(world, cfg)
-        if history is not None:
-            record_tick(history, state, active, stats.ticks)
-        stats = _tick_metrics(stats, state, prev_a, active, cfg)
-        prev_a = torch.where(active, state.ego_accel.to(dtype), prev_a)
+            with tracing.span("episode.sense"):
+                state = sense(world, cfg)
+            if history is not None:
+                with tracing.span("episode.history_write"):
+                    record_tick(history, state, active, stats.ticks)
+            with tracing.span("episode.tick_metrics"):
+                stats = _tick_metrics(stats, state, prev_a, active, cfg)
+                prev_a = torch.where(active, state.ego_accel.to(dtype),
+                                     prev_a)
 
-        if controller_carry is not None:
-            out, controller_carry = controller(state, controller_carry)
-        else:
-            out = controller(state)
-        if isinstance(out, tuple):
-            speed_cmd, aux = out
-            aux_on = torch.where(active, aux.to(dtype), 0.0)
-            bi = _bin_index(state.ego_x.to(dtype))[:, None]
-            stats = stats._replace(
-                aux_sum=stats.aux_sum + aux_on,
-                bin_aux=stats.bin_aux.scatter_add(1, bi, aux_on[:, None]))
-        else:
-            speed_cmd = out
-        speed_cmd = speed_cmd.to(dtype)
-        # frozen scenarios coast (their world is masked below anyway)
-        speed_cmd = torch.where(active, speed_cmd, world.ego_v)
-        world = _select_world(active, world_step(world, speed_cmd, cfg, rng),
-                              world)
+            if controller_carry is not None:
+                out, controller_carry = controller(state, controller_carry)
+            else:
+                out = controller(state)
+            if isinstance(out, tuple):
+                speed_cmd, aux = out
+                with tracing.span("episode.tick_metrics"):
+                    aux_on = torch.where(active, aux.to(dtype), 0.0)
+                    bi = _bin_index(state.ego_x.to(dtype))[:, None]
+                    stats = stats._replace(
+                        aux_sum=stats.aux_sum + aux_on,
+                        bin_aux=stats.bin_aux.scatter_add(1, bi,
+                                                          aux_on[:, None]))
+            else:
+                speed_cmd = out
+            speed_cmd = speed_cmd.to(dtype)
+            # frozen scenarios coast (their world is masked below anyway)
+            speed_cmd = torch.where(active, speed_cmd, world.ego_v)
+            with tracing.span("world.step"):
+                world = _select_world(
+                    active, world_step(world, speed_cmd, cfg, rng), world)
         tick += 1
 
     # tick-budget overrun: remove ego, not merged, not crashed

@@ -16,6 +16,7 @@ from typing import Callable, Optional
 
 import torch
 
+from . import tracing
 from ._device import resolve_device
 from .config import Settings
 from .planner import mpc
@@ -103,6 +104,7 @@ def evaluate_controller(cfg: Settings, controller: Controller,
     rounds = -(-num_episodes // batch)
     crashes, merges = [], []
     for r in range(rounds):
+        tracing.set_round(r)
         t0 = time.perf_counter()
         out = run(worlds, rng, controller_carry=controller_carry)
         if controller_carry is not None:
