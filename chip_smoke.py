@@ -26,7 +26,8 @@ non-zero:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the kernels from ``rl_mpc_lanemerging_torch/csrc``, one
-   ``nvcc`` per source, started together: K1 and its full-scan yardstick;
+   ``nvcc`` per source, started together: K1, its full-scan yardstick and
+   the obstacle-grid kernel;
 3. kernel vs plain version on 512 realistic grids (4 snapshots, 10 ticks
    apart, of 128 worlds driven through the merge region by the port's own
    world and controller), in one launch at B=512: >= 99.9% of s sequences
@@ -195,7 +196,16 @@ non-zero:
     written, loaded into a freshly built trainer, 2 more: every tensor the
     handoff carries (network, target, Adam state, the replay ring with its
     priorities, env and world, the draw generator, counters) equals the
-    straight run's wherever the two straight runs are equal; K1 0.
+    straight run's wherever the two straight runs are equal; K1 0;
+31. the obstacle-grid kernel (``ops/grid_kernel.py``) against the plain
+    path (``planner.grid.build_st_grid_plain``) on the card: obstacles,
+    distances, s values and t values bit for bit on phase 3's 512
+    st_default states in one build and on phase 9's 256 rollout test
+    states of combined_default_1, one launch a build (phases 6 and 11
+    also require one a grid: 1 a control tick, 2 under the arbiter); the
+    kernel alone (CUDA events around runs of 20 launches, median of 25),
+    the wrapper and the plain path at B=128 and at B=4096 (the 512 states
+    tiled), beside the bound of the grid's bytes.
 
 Every phase prints its seconds, and the script its total.
 Prints the ``kernels`` JSON line before the last line, and as the last line
@@ -631,6 +641,7 @@ def combined_round(config: str, batch: int, dev, st_kernel, st_dp,
     from rl_mpc_lanemerging_torch.agents import ddpg
     from rl_mpc_lanemerging_torch.checkpoint import load_actor
     from rl_mpc_lanemerging_torch.config import Settings
+    from rl_mpc_lanemerging_torch.ops import grid_kernel
     cfg = Settings.load_from_file(config).replace(
         NUM_EPISODES=batch, BATCH_SCENARIOS=batch, **settings)
     actor = load_actor(cfg.MODEL_NAME, dev, cfg.MINIMUM_NEGATIVE_JERK,
@@ -642,11 +653,13 @@ def combined_round(config: str, batch: int, dev, st_kernel, st_dp,
     st_dp.solve_st_fast, st_dp.solve_st_no_jerk_fast = dense
     try:
         st_kernel.launches = 0
+        grid_kernel.launches = 0
         t0 = time.perf_counter()
         agg = ddpg.evaluate_combined(cfg, actor=actor, device=dev,
                                      verbose=False)
         seconds = time.perf_counter() - t0
         launches = st_kernel.launches
+        grid_launches = grid_kernel.launches
     finally:
         st_dp.solve_st_fast, st_dp.solve_st_no_jerk_fast = (
             d.fn for d in dense)
@@ -656,10 +669,12 @@ def combined_round(config: str, batch: int, dev, st_kernel, st_dp,
     rep = round_report(agg, cfg)
     rep.update(control_ticks=ticks, seconds=seconds,
                seconds_per_tick=seconds / max(ticks, 1), launches=launches,
+               grid_launches=grid_launches,
                dense_dp_calls=sum(d.calls for d in dense))
     print("   " + json.dumps(rep), flush=True)
     assert rep["episodes"] == batch and np.isfinite(rep["mean_abs_jerk"])
     assert ticks > 0 and launches == 2 * ticks, (launches, ticks)
+    assert grid_launches == launches, (grid_launches, launches)
     assert rep["dense_dp_calls"] == 0, "the dense DP ran on the card path"
     return rep
 
@@ -713,7 +728,7 @@ def combined_phases(dev, states, worlds0, kw) -> dict:
     worlds = init_world(cfg, BATCH, torch.float32, dev)
     worlds = warmup(worlds, cfg, int(50.0 / cfg.TICK_LENGTH), rng)
     worlds = add_ego(worlds, torch.full((BATCH,), 15.0, device=dev))
-    grids, condemned, frozen, snapshots = [], [], [], []
+    grids, condemned, frozen, snapshots, test_states = [], [], [], [], []
     for tick in range(1, ROLLOUT_SNAPSHOTS * ROLLOUT_SNAPSHOT_EVERY + 1):
         sensed = sense(worlds, cfg)
         if tick % ROLLOUT_SNAPSHOT_EVERY == 0:
@@ -721,6 +736,7 @@ def combined_phases(dev, states, worlds0, kw) -> dict:
             _, rollout_len, _, _, test_state = combined._rl_rollout(
                 policy, sensed, policy(sensed), cfg)
             g = build_st_grid(test_state, cfg, torch.float32)
+            test_states.append(test_state)
             grids.append((g.obstacles, g.s_values, g.ego_speed,
                           test_state.ego_accel.to(torch.float32),
                           g.distances))
@@ -736,6 +752,7 @@ def combined_phases(dev, states, worlds0, kw) -> dict:
     same = np.all(np.abs(k_np - r_np) <= 1e-4, axis=1)
     start_blocked = torch.cat([g[0][:, 0, 0] for g in grids])
     out.update(
+        rollout_test_states=test_states,
         rollout_grids=len(k_np), rollout_identical=float(same.mean()),
         rollout_max_abs_err=float(np.abs(k_np - r_np).max()),
         rollout_condemned_share=float(torch.cat(condemned).float().mean()),
@@ -2107,7 +2124,8 @@ def merge_region_grids(cfg, dev, controller, seed: int = 0):
     """SNAPSHOTS snapshots, SNAPSHOT_EVERY ticks apart from FIRST_SNAPSHOT
     ticks after the ego joins, of BATCH worlds of ``cfg`` driven through
     the merge region by ``controller``: (the arguments of st_wavefront per
-    snapshot, the first snapshot's sensed states, its worlds, t_values)."""
+    snapshot, the first snapshot's sensed states, its worlds, t_values,
+    every snapshot's sensed states)."""
     from rl_mpc_lanemerging_torch.planner.grid import build_st_grid
     from rl_mpc_lanemerging_torch.sim import (CounterRandom, add_ego,
                                               init_world, sense, warmup,
@@ -2116,7 +2134,7 @@ def merge_region_grids(cfg, dev, controller, seed: int = 0):
     worlds = init_world(cfg, BATCH, torch.float32, dev)
     worlds = warmup(worlds, cfg, int(50.0 / cfg.TICK_LENGTH), rng)
     worlds = add_ego(worlds, torch.full((BATCH,), 15.0, device=dev))
-    snapshots = []
+    snapshots, sensed_all = [], []
     states = worlds0 = t_values = None
     last_tick = FIRST_SNAPSHOT + SNAPSHOT_EVERY * (SNAPSHOTS - 1)
     for tick in range(1, last_tick + 1):
@@ -2125,13 +2143,14 @@ def merge_region_grids(cfg, dev, controller, seed: int = 0):
         if tick >= FIRST_SNAPSHOT \
                 and (tick - FIRST_SNAPSHOT) % SNAPSHOT_EVERY == 0:
             sensed = sense(worlds, cfg)
+            sensed_all.append(sensed)
             g = build_st_grid(sensed, cfg, torch.float32)
             snapshots.append((g.obstacles, g.s_values, g.ego_speed,
                               sensed.ego_accel.to(torch.float32),
                               g.distances))
             if states is None:
                 states, worlds0, t_values = sensed, worlds, g.t_values
-    return snapshots, states, worlds0, t_values
+    return snapshots, states, worlds0, t_values, sensed_all
 
 
 def kernel_vs_plain(snapshots, kw, num_t: int, visited=None):
@@ -2461,6 +2480,64 @@ def dqn_handoff_phase(dev) -> dict:
     return rep
 
 
+def grid_kernel_phase(dev, cfg, sensed, comb_cfg, test_states) -> dict:
+    """Phase 31: the obstacle-grid kernel against the plain path on the
+    card, bit for bit, on every st_default snapshot of phase 3 (one build
+    of them all) and every rollout test state of phase 9; then its times
+    at B=128 (the first snapshot) and at B=4096 (the snapshots tiled)."""
+    from rl_mpc_lanemerging_torch.ops import grid_kernel
+    from rl_mpc_lanemerging_torch.planner import grid
+
+    def cat(states):
+        return type(states[0])(*(torch.cat(f) for f in zip(*states)))
+
+    n_st, n_test = sum(len(s.ego_x) for s in sensed), \
+        sum(len(s.ego_x) for s in test_states)
+    t0 = phase(f"31 obstacle-grid kernel vs plain path, {n_st} st_default "
+               f"states in one build and {n_test} rollout test states")
+    cases = [(cfg, cat(sensed))] + [(comb_cfg, s) for s in test_states]
+    before = grid_kernel.launches
+    for c, states in cases:
+        got = grid.build_st_grid(states, c)
+        want = grid.build_st_grid_plain(states, c)
+        for name in grid.STGrid._fields:
+            a, b = getattr(got, name), getattr(want, name)
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            assert not _differing(a, b).any(), \
+                f"{name} differs from the plain path"
+    launches = grid_kernel.launches - before
+    assert launches == len(cases), (launches, len(cases))
+    blocked = float(got.obstacles.float().mean())
+
+    out = {"name": "obstacle_grid", "route": "cuda",
+           "source": "rl_mpc_lanemerging_torch/csrc/obstacle_grid.cu",
+           "replaces": None, "grids_compared": n_st + n_test,
+           "identical": True, "library_ms": None, "bound_by": "bytes"}
+    wide = cat(sensed * -(-4096 // n_st))
+    wide = type(wide)(*(x[:4096] for x in wide))
+    for label, states in (("", sensed[0]), ("_4096", wide)):
+        batch, num_k = states.other_x.shape
+        launch, _ = grid_kernel.prepare_launch(states, cfg,
+                                               *grid.kernel_reach(cfg))
+        k_ms = cuda_ms_launches(launch)
+        wrapper_ms = cuda_ms(lambda: grid.build_st_grid(states, cfg))
+        plain_ms = cuda_ms(lambda: grid.build_st_grid_plain(states, cfg),
+                           runs=5)
+        # the grid written once, the state read once
+        n_bytes = batch * cfg.num_t * cfg.num_s * 5 + batch * cfg.num_s * 4 \
+            + cfg.num_t * 4 + batch * 8 + batch * num_k * 9
+        bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        out.update({f"ms{label}": k_ms, f"wrapper_ms{label}": wrapper_ms,
+                    f"plain_ms{label}": plain_ms,
+                    f"bound_ms{label}": bound_ms, f"bytes{label}": n_bytes})
+        assert k_ms > bound_ms, "a kernel time below its bound"
+    print(f"   identical on every grid ({launches} builds, one launch each; "
+          f"blocked share {blocked:.4f}); " + json.dumps(
+              {k: v for k, v in out.items() if "ms" in k}), flush=True)
+    done(t0)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2468,8 +2545,8 @@ def main() -> int:
         return 2
 
     from rl_mpc_lanemerging_torch.config import Settings
-    from rl_mpc_lanemerging_torch.ops import _build, st_dp, st_kernel
-    from rl_mpc_lanemerging_torch.ops import qp
+    from rl_mpc_lanemerging_torch.ops import _build, grid_kernel, st_dp
+    from rl_mpc_lanemerging_torch.ops import qp, st_kernel
     from rl_mpc_lanemerging_torch.planner import mpc
     from rl_mpc_lanemerging_torch.planner.grid import build_st_grid
     from rl_mpc_lanemerging_torch import tasks
@@ -2490,10 +2567,11 @@ def main() -> int:
 
     t0 = phase("2 build")
     from concurrent.futures import ThreadPoolExecutor
-    names = ("st_wavefront", "st_wavefront_scan")
+    names = ("st_wavefront", "st_wavefront_scan", "obstacle_grid")
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(_build.build, names))
     st_kernel.load_kernel()
+    grid_kernel.load_kernel()
     scan_lib = load_scan_kernel()
     for name in names:
         print(f"   {name} built in {_build.build_seconds.get(name, 0.0):.2f}"
@@ -2509,7 +2587,7 @@ def main() -> int:
     controller = mpc.make_batched_controller(cfg)
 
     t0 = phase("3 kernel vs plain version, realistic grids")
-    snapshots, states, worlds0, t_values = merge_region_grids(
+    snapshots, states, worlds0, t_values, sensed_all = merge_region_grids(
         cfg, dev, controller)
     args = snapshots[0]
     all_args = tuple(torch.cat([snap[i] for snap in snapshots])
@@ -2578,10 +2656,12 @@ def main() -> int:
     mpc.make_batched_controller = lambda c: counted
     try:
         st_kernel.launches = 0
+        grid_kernel.launches = 0
         t_main = time.perf_counter()
         agg = tasks.evaluate_st(main_cfg, device=dev, verbose=False)
         main_s = time.perf_counter() - t_main
         launches = st_kernel.launches
+        grid_launches = grid_kernel.launches
     finally:
         mpc.make_batched_controller = make_controller
     cols = agg.columns
@@ -2594,9 +2674,11 @@ def main() -> int:
           f"merge {merge:.4f} mean ticks {mean_ticks:.1f} mean |jerk| "
           f"{jerk:.4f}; {ticks_run} control ticks in {main_s:.2f} s = "
           f"{s_per_tick:.4f} s per tick (warmup and the history included); "
-          f"st_wavefront launches {launches}", flush=True)
+          f"st_wavefront launches {launches}, obstacle_grid launches "
+          f"{grid_launches}", flush=True)
     assert len(cols["crashed"]) == BATCH and np.isfinite(jerk)
     assert launches == ticks_run > 0, (launches, ticks_run)
+    assert grid_launches == ticks_run, (grid_launches, ticks_run)
     done(t0)
 
     t0 = phase("7 tick split and kernel timing")
@@ -2739,6 +2821,9 @@ def main() -> int:
     st_fast = st_fast_phase(dev, st_kernel)
     handoff_phase(dev)
     dqn_handoff = dqn_handoff_phase(dev)
+    grid_row = grid_kernel_phase(
+        dev, cfg, sensed_all, Settings.load_from_file(COMBINED_CONFIG),
+        comb["rollout_test_states"])
     print(f"   the script: {time.perf_counter() - t_script:.2f} s",
           flush=True)
 
@@ -2799,6 +2884,10 @@ def main() -> int:
         gate_b["round"]["control_ticks"],
         "st_fast_grids_compared": st_fast["grids"],
         "st_fast_identical_paths": st_fast["identical"],
+    }, {
+        **grid_row,
+        "launches_st_path": grid_launches,
+        "launches_combined_path": comb["main"]["grid_launches"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -13,7 +13,10 @@ projected onto the discretized s axis:
   cars beyond the horizon are skipped (st.py:46-49).
 
 The trunc-toward-zero cell index (st.py:20-22) is kept.  The whole batch of
-B scenarios is built at once; the 17-slice forecast roll is a Python loop.
+B scenarios is built at once.  On the card, one launch of
+``csrc/obstacle_grid.cu`` (``ops/grid_kernel.py``) builds it; on the CPU
+and in float64 :func:`build_st_grid_plain` does, whose 17-slice forecast
+roll is a Python loop and which is the kernel's plain version.
 """
 
 from __future__ import annotations
@@ -26,9 +29,11 @@ import torch
 from .. import geometry, tracing
 from .._device import const
 from ..config import Settings
+from ..ops import grid_kernel
 from ..prediction import HighwayState, predict_step_without_ego
 
-__all__ = ["STGrid", "build_st_grid"]
+__all__ = ["STGrid", "build_st_grid", "build_st_grid_plain",
+           "kernel_reach"]
 
 
 class STGrid(NamedTuple):
@@ -74,12 +79,56 @@ def _mark_slice(state: HighwayState, s_values, start_s, delta_s,
     return obstacles, distances
 
 
+def _slice_reach(cfg: Settings):
+    """Per-slice uncertainty in metres (host doubles) and blocked half width
+    in cells (st.py:37-41, trunc semantics)."""
+    delta_s = float(cfg.S_DISCRETIZATION)
+    t_host = np.arange(cfg.num_t, dtype=np.float64) \
+        * float(cfg.T_DISCRETIZATION)
+    unc_host = (float(cfg.START_UNCERTAINTY)
+                + float(cfg.UNCERTAINTY_PER_SECOND) * t_host)
+    discrete_length = int(cfg.CAR_LENGTH / delta_s)
+    return unc_host, [discrete_length + int(u / delta_s) for u in unc_host]
+
+
+def kernel_reach(cfg: Settings):
+    """The per-slice reach as the kernel takes it: in metres as f32 (T,),
+    and in cells.  The metres are :func:`build_st_grid_plain`'s: slice 0's
+    a host double rounded once, the later slices' an f32 add of the
+    rounded uncertainty and CAR_LENGTH."""
+    unc_host, discrete_reach = _slice_reach(cfg)
+    car = np.float32(cfg.CAR_LENGTH)
+    reach = [np.float32(cfg.CAR_LENGTH + float(unc_host[0]))]
+    reach += [np.float32(u) + car for u in unc_host[1:]]
+    return np.asarray(reach, np.float32), discrete_reach
+
+
 def build_st_grid(state: HighwayState, cfg: Settings,
                   dtype=torch.float32) -> STGrid:
     """Build the (B, T, S) obstacle grid from a batch of sensed states.
 
-    T = cfg.num_t, S = cfg.num_s.
+    T = cfg.num_t, S = cfg.num_s.  Where ``grid_kernel.supports`` the state
+    (on a CUDA device, and neither it nor the grid float64), one kernel
+    launch builds it, bit for bit :func:`build_st_grid_plain`'s, or the
+    kernel's wrapper raises; on the CPU and in float64 that plain path
+    builds it.  The counter ``grid.path`` records 1 for a kernel build and
+    0 for a plain one.
     """
+    if not grid_kernel.supports(state, dtype):
+        tracing.count("grid.path", 0)
+        return build_st_grid_plain(state, cfg, dtype)
+    tracing.count("grid.path", 1)
+    obstacles, distances, s_values, t_values = grid_kernel.build(
+        state, cfg, *kernel_reach(cfg), dtype)
+    return STGrid(obstacles, s_values, t_values, state.ego_speed.to(dtype),
+                  distances)
+
+
+def build_st_grid_plain(state: HighwayState, cfg: Settings,
+                        dtype=torch.float32) -> STGrid:
+    """:func:`build_st_grid` in plain PyTorch on any device and dtype: the
+    forecast rolled one ``predict_step_without_ego`` a slice, each slice
+    marked by :func:`_mark_slice`."""
     num_t, num_s = cfg.num_t, cfg.num_s
     delta_s = float(cfg.S_DISCRETIZATION)
     delta_t = float(cfg.T_DISCRETIZATION)
@@ -93,11 +142,7 @@ def build_st_grid(state: HighwayState, cfg: Settings,
         * const(delta_t, ds)
 
     # static per-slice reach in cells (st.py:37-41, trunc semantics)
-    t_host = np.arange(num_t, dtype=np.float64) * delta_t
-    unc_host = (float(cfg.START_UNCERTAINTY)
-                + float(cfg.UNCERTAINTY_PER_SECOND) * t_host)
-    discrete_length = int(cfg.CAR_LENGTH / delta_s)
-    discrete_reach = [discrete_length + int(u / delta_s) for u in unc_host]
+    unc_host, discrete_reach = _slice_reach(cfg)
 
     # slice 0's reach is a host float; the JAX package scans the later
     # slices' uncertainty in as dtype scalars, so their reach is a dtype add

@@ -51,8 +51,10 @@ SPANS = (
     "combined.rollout",         # _rl_rollout
     "combined.actor",           # every policy call
     # the planner's layers
-    "grid.build",               # build_st_grid; its self time is marking
+    "grid.build",               # build_st_grid; its self time is the
+                                # kernel's launch, or the plain marking
     "grid.forecast",            # one predict_step_without_ego of a slice
+                                # (the plain path only)
     "dp.solve",                 # the lattice DP (K1 or its dense twin)
     "qp.admm",                  # qp.finer_fit_qp
     # one DDPG update (agents/ddpg.py UPDATE_STAGES)
@@ -62,6 +64,7 @@ SPANS = (
 
 COUNTERS = (
     "episode.active",           # scenarios still running as a tick starts
+    "grid.path",                # a grid build: 1 by the kernel, 0 plain
 )
 
 

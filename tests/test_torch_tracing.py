@@ -172,10 +172,17 @@ def test_spans_nest_in_their_tick(kind):
             assert names_of_tick.count("combined.actor") \
                 == max(CFG.ROLLOUT_LENGTH, 1)
             assert names_of_tick.count("grid.build") == 2
-    # one counter a tick: the scenarios still running as it starts
-    assert [(c.name, c.round, c.tick) for c in counts] \
+    # one counter a tick: the scenarios still running as it starts; and
+    # one a grid build: its path, 0 (plain) on the CPU
+    active = [c for c in counts if c.name == "episode.active"]
+    assert [(c.name, c.round, c.tick) for c in active] \
         == [("episode.active", 0, t) for t in range(1, n + 1)]
-    values = [c.value for c in counts]
+    paths = [c for c in counts if c.name == "grid.path"]
+    assert len(paths) + len(active) == len(counts)
+    assert sorted((c.round, c.tick) for c in paths) == sorted(
+        (s.round, s.tick) for s in spans if s.name == "grid.build")
+    assert all(c.value == 0 for c in paths)
+    values = [c.value for c in active]
     assert values[0] == BATCH and values == sorted(values, reverse=True)
     assert all(isinstance(v, int) and v > 0 for v in values)
 
